@@ -24,6 +24,25 @@ Phases, in order; any failure exits nonzero before the result line:
 4. A small input (the 150-row balance subsample) fit on the card and with
    the plain versions on the CPU: the same kernel picks, (gamma, C),
    support sets and scores.
+5. The LM kernels against their plain versions on the card at the shapes
+   of hymba-1.5b's prefill of 4 x 2048 tokens: K3 (flash attention) on a
+   global layer (causal) and an SWA layer (window 1024), in bf16 and f32,
+   with ``scaled_dot_product_attention`` timed on the same tensors; K4 (SSD
+   scan) at (b, s, nh, dh, ds) = (4, 2048, 50, 64, 16), chunk 128.
+6. The LM serving path, hymba-1.5b at full width (32 layers, d_model 1600,
+   random init from a seed): ``repro_torch.launch.serve.main`` answers 4
+   prompts of 2048 tokens and samples 32 tokens each.  The launch counters
+   are zeroed just before and read just after: exactly 32 K3 and 32 K4
+   launches (one per layer in the one prefill; decode launches neither).
+   Then one more prefill at the same shape, timed warm, and one traced
+   prefill and decode step (``torch.profiler``): device time by kernel
+   group and the device's idle share.
+7. A small prefill (full width, 4 layers, 1 prompt of 1100 tokens) on the
+   card through the kernels and through their plain versions: in bf16 the
+   last-token logits within 4 bf16 ulps at the largest logit's scale and
+   the same argmax wherever the top-2 margin exceeds 0.05; in f32 the
+   logits and SSM states within 1e-4.  A negative control, K3 with one kv
+   block dropped from every layer's last query, must fail the f32 check.
 
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -39,10 +58,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32
-#: operations/s outside the tensor cores.
+#: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32
+#: operations/s outside the tensor cores and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
+
+#: The LM serving path: hymba-1.5b at full width, 4 prompts of 2048 tokens,
+#: 32 sampled tokens each (cap = 2048 + 32 + 8).
+SERVE_ARGV = ["--arch", "hymba-1.5b", "--no-reduced", "--batch", "4",
+              "--prompt-len", "2048", "--gen", "32", "--seed", "0"]
 
 TABLE2_DATASETS = ("balance", "seeds", "vertebral")
 
@@ -75,9 +100,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -400,6 +426,353 @@ def check_small_input(dev) -> None:
         "machines)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the LM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def attn_live_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs a causal / windowed mask leaves visible."""
+    total = 0
+    for qpos in range(sq):
+        hi = min(qpos, skv - 1) if causal else skv - 1
+        lo = max(0, qpos - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def check_k3(dev) -> list:
+    """K3 at the prefill shapes: q (4, 25, 2048, 64), k and v (4, 5, 2048,
+    64), on a global layer (causal) and an SWA layer (window 1024), bf16 as
+    the model runs it and f32.  ``library_ms`` is one call of
+    ``scaled_dot_product_attention(..., enable_gqa=True)`` on the same
+    tensors: ``is_causal=True`` for the global layer, an explicit boolean
+    mask for the SWA layer."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention, ref
+
+    cfg = configs.get("hymba-1.5b").make_config()
+    b, hq, hkv, s, dh = 4, cfg.n_heads, cfg.n_kv_heads, 2048, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(12)
+    pos = torch.arange(s, device=dev)
+    rows = []
+    for dtype, tol, peak in ((torch.bfloat16, 2e-2, BF16_TC_OPS_PER_S),
+                             (torch.float32, 2e-5, F32_OPS_PER_S)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, hq, s, dh), (b, hkv, s, dh),
+                                 (b, hkv, s, dh)))
+        for layer, window in (("global", None), ("swa", cfg.window)):
+            run = lambda: flash_attention.flash_attention_cuda(q, k, v, True,
+                                                               window)
+            plain = lambda: ref.flash_attention(q, k, v, True, window)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            ok, err = within(got.float(), want.float(), tol, tol)
+            if not ok:
+                raise AssertionError(f"K3 {layer} {dtype}: max err {err}")
+            if window is None:
+                lib = lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+            else:
+                mask = (pos[None, :] <= pos[:, None]) & \
+                    (pos[None, :] > pos[:, None] - window)
+                lib = lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+            lib_err = float((lib().float() - want.float()).abs().max())
+            pairs = attn_live_pairs(s, s, True, window)
+            n_ops = 4 * dh * pairs * b * hq
+            n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+            bnd, by = bound_ms(n_bytes, n_ops, peak)
+            row = dict(layer=layer, dtype=str(dtype).split(".")[-1],
+                       shape=[b, hq, hkv, s, dh], window=window,
+                       live_pairs_per_head=pairs, max_abs_err=err,
+                       tolerance=tol, ms=cuda_ms(run, reps=10),
+                       plain_ms=cuda_ms(plain, reps=3),
+                       library_ms=cuda_ms(lib, reps=10),
+                       library_max_abs_err=lib_err, bound_ms=bnd,
+                       bound_by=by)
+            rows.append(row)
+            log("K3", json.dumps(row))
+        del q, k, v
+    return rows
+
+
+def ssd_ops(b: int, s: int, nh: int, dh: int, ds: int, chunk: int) -> float:
+    """f32 operations of the chunked scan, counting only the causal half of
+    the two (L, L) products (the upper triangle is zero): per chunk and
+    head, C B^T and (G * decay) x over L(L+1)/2 pairs, one exp per pair,
+    the inter-chunk output and the state update (2 L dh ds each)."""
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = 2 * pairs * ds + 2 * pairs * dh + pairs + 4 * chunk * dh * ds
+    return float(b * nh * (s // chunk) * per_chunk)
+
+
+def check_k4(dev) -> dict:
+    """K4 at the prefill shape: x (4, 2048, 50, 64), a (4, 2048, 50), B and
+    C (4, 2048, 1, 16), chunk 128.  No single PyTorch call computes the
+    chunked scan, so ``library_ms`` is null."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ref, ssd
+
+    cfg = configs.get("hymba-1.5b").make_config()
+    b, s, nh, dh = 4, 2048, cfg.n_ssm_heads, cfg.ssm_head_dim
+    g, ds, chunk = cfg.ssm_groups, cfg.ssm_state, 128
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x, a = draw(b, s, nh, dh) * 0.3, -draw(b, s, nh).abs() * 0.3
+    bm, cm = draw(b, s, g, ds) * 0.3, draw(b, s, g, ds) * 0.3
+    run = lambda: ssd.ssd_scan_cuda(x, a, bm, cm, chunk)
+    plain = lambda: ref.ssd_scan(x, a, bm, cm, chunk)
+    (y, sf), (y_p, sf_p) = run(), plain()
+    torch.cuda.synchronize()
+    ok_y, err_y = within(y, y_p, 1e-4, 0.0)
+    ok_s, err_s = within(sf, sf_p, 1e-4, 0.0)
+    if not (ok_y and ok_s):
+        raise AssertionError(f"K4: max err y {err_y}, state {err_s}")
+    n_bytes = 4 * (2 * x.numel() + a.numel() + bm.numel() + cm.numel()
+                   + sf.numel())
+    bnd, by = bound_ms(n_bytes, ssd_ops(b, s, nh, dh, ds, chunk))
+    row = dict(shape=[b, s, nh, dh, g, ds], chunk=chunk,
+               max_abs_err=max(err_y, err_s), tolerance=1e-4,
+               ms=cuda_ms(run, reps=10), plain_ms=cuda_ms(plain, reps=3),
+               library_ms=None, bound_ms=bnd, bound_by=by)
+    log("K4", json.dumps(row))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: LM serving
+# ---------------------------------------------------------------------------
+
+
+def device_breakdown(fn) -> dict:
+    """One traced call of ``fn``: host wall time, device kernel time by
+    group (K3, K4, cuBLAS GEMMs by their kernel names, the rest) and the
+    device's idle share of the wall time.  Kernel times come from
+    ``torch.profiler``'s CUDA events; with none recorded the breakdown
+    says "not measured"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"K3 flash_attention": 0.0, "K4 ssd": 0.0, "cuBLAS GEMM": 0.0,
+              "other": 0.0}
+    by_name: dict[str, float] = {}
+    n_kernels = 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.time_range.end - evt.time_range.start
+        n_kernels += 1
+        name = evt.name
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3
+        if "flash_kernel" in name:
+            groups["K3 flash_attention"] += us / 1e3
+        elif "ssd_kernel" in name:
+            groups["K4 ssd"] += us / 1e3
+        elif any(t in name.lower() for t in ("gemm", "nvjet", "xmma",
+                                                "cutlass")):
+            groups["cuBLAS GEMM"] += us / 1e3
+        else:
+            groups["other"] += us / 1e3
+    if n_kernels == 0:
+        return {"wall_ms": wall_ms, "device": "not measured"}
+    busy = sum(groups.values())
+    if busy > wall_ms:
+        # One stream runs one kernel at a time: a larger sum is a wrong one.
+        raise AssertionError(f"device busy {busy} ms > wall {wall_ms} ms")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "device_ms": groups, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_kernels": n_kernels,
+            "top_kernels_ms": [[n[:60], t] for n, t in top]}
+
+
+def serve_path() -> tuple[dict, dict]:
+    """hymba-1.5b served at full width through the port's entry point."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import engine
+
+    ops.reset_launches()
+    out = serve.main(SERVE_ARGV)
+    counts = ops.launch_counts()
+    log("launches on the serve path:", json.dumps(counts))
+    cfg, toks = out["cfg"], out["tokens"]
+    if (cfg.n_layers, cfg.d_model) != (32, 1600):
+        raise AssertionError(f"not the full config: {cfg}")
+    for name in ("flash_attention", "ssd"):
+        if counts[name] != cfg.n_layers:
+            raise AssertionError(
+                f"{name}: {counts[name]} launches, expected {cfg.n_layers} "
+                "(one per layer in one prefill)")
+    if toks.shape != (4, 32) or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"bad tokens {toks.shape}")
+    b, s, n_dec = 4, 2048, out["decode_steps"]
+    row = dict(config=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               batch=b, prompt_len=s, gen=toks.shape[1],
+               prefill_s=out["prefill_s"],
+               prefill_tokens_per_s=b * s / out["prefill_s"],
+               decode_s=out["decode_s"], decode_steps=n_dec,
+               decode_ms_per_step=out["decode_s"] / n_dec * 1e3,
+               decode_tokens_per_s=b * n_dec / out["decode_s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # One more prefill at the same shape, warm, outside the counted run.
+    from repro_torch.models import transformer as tfm
+
+    dev = toks.device
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), device=dev)
+    engine.prefill(cfg, params, {"tokens": prompts}, s + 40)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, logits = engine.prefill(cfg, params, {"tokens": prompts}, s + 40)
+    torch.cuda.synchronize()
+    row["prefill_warm_s"] = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("warm prefill: non-finite logits")
+    log("SERVE", json.dumps(row))
+
+    # Where the time goes: one traced prefill and one traced decode step.
+    state = {}
+
+    def prefill():
+        state["s"], state["logits"] = engine.prefill(
+            cfg, params, {"tokens": prompts}, s + 40)
+
+    log("TRACE prefill", json.dumps(device_breakdown(prefill)))
+    tok = torch.argmax(state["logits"], dim=-1)[:, None]
+    engine.decode_step(cfg, params, state["s"], tok)
+    log("TRACE decode step", json.dumps(device_breakdown(
+        lambda: engine.decode_step(cfg, params, state["s"], tok))))
+    return row, counts
+
+
+def _prefill_last(cfg, params, toks, attention=None, scan=None):
+    """Last-token logits (f32) and SSM states of one prefill on the card,
+    through K3 and K4 or through the functions given in their place."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine
+
+    saved = ops.flash_attention, ops.ssd_scan
+    ops.flash_attention = attention or saved[0]
+    ops.ssd_scan = scan or saved[1]
+    try:
+        st, lg = engine.prefill(cfg, params, {"tokens": toks},
+                                toks.shape[1] + 40)
+    finally:
+        ops.flash_attention, ops.ssd_scan = saved
+    return lg.float(), st["ssm"]
+
+
+def _k3_dropping_a_kv_block(q, k, v, causal=True, window=None, q_offset=0):
+    """K3 with a planted fault, phase 7's negative control: the window is
+    narrowed by one kv block (64 keys), so the last query of every layer
+    loses its oldest visible block."""
+    from repro_torch.kernels import flash_attention
+
+    return flash_attention.flash_attention_cuda(
+        q, k, v, causal, (window or k.shape[2]) - 64, q_offset)
+
+
+#: Phase 7's bf16 bound on the kernels' last-token logits against the plain
+#: versions': this many bf16 ulps at the scale of the largest logit.  A
+#: sound run reads 2.5 ulps at 4 layers (PERF.md, section 6).
+BF16_LOGIT_ULPS = 4
+
+
+def bf16_ulp(x: float) -> float:
+    """Spacing of bf16 values (8 significant bits) at magnitude ``x``."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def check_small_prefill(dev) -> dict:
+    """Full width, 4 layers (global 0 and 3, SWA 1 and 2), 1 prompt of 1100
+    tokens (past the 1024 window; ragged for both kernels): the prefill on
+    the card through K3 / K4 and through their plain versions, with the
+    same weights in bf16 and in f32.
+
+    bf16 (as the model serves): the kernels' last-token logits within
+    ``BF16_LOGIT_ULPS`` bf16 ulps (at the largest logit's scale) of the
+    plain versions', and the same argmax wherever the top-2 margin exceeds
+    0.05.  f32: logits and SSM states within atol 1e-4 / rtol 1e-4.  The
+    negative control, K3 dropping a kv block, must fail the f32 check; what
+    it reads on the bf16 one is logged."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(configs.get("hymba-1.5b").make_config(),
+                              n_layers=4, global_layers=(0, 3))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks = torch.as_tensor(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (1, 1100)), device=dev)
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    plain = dict(attention=ref.flash_attention, scan=ref.ssd_scan)
+    k16, _ = _prefill_last(cfg, params, toks)
+    p16, _ = _prefill_last(cfg, params, toks, **plain)
+    m16, _ = _prefill_last(cfg, params, toks, _k3_dropping_a_kv_block)
+    params = params.float()
+    k32, sk32 = _prefill_last(cfg32, params, toks)
+    p32, sp32 = _prefill_last(cfg32, params, toks, **plain)
+    m32, _ = _prefill_last(cfg32, params, toks, _k3_dropping_a_kv_block)
+    del params
+
+    scale = float(p16.abs().max())
+    bound16 = BF16_LOGIT_ULPS * bf16_ulp(scale)
+    err16 = float((k16 - p16).abs().max())
+    mut16 = float((m16 - p16).abs().max())
+    ok32, err32 = within(k32, p32, 1e-4, 1e-4)
+    ok_st, err_st = within(sk32, sp32, 1e-4, 1e-4)
+    mut_ok32, mut32 = within(m32, p32, 1e-4, 1e-4)
+    top2 = torch.topk(p16, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 0.05
+    same = bool((k16.argmax(-1) == p16.argmax(-1))[clear].all())
+    row = dict(shape=[1, 1100], n_layers=4, bf16_logit_absmax=scale,
+               bf16_bound=bound16, bf16_logits_max_abs_err=err16,
+               bf16_err_ulps=err16 / bf16_ulp(scale),
+               argmax_equal_off_ties=same, clear_rows=int(clear.sum()),
+               f32_logits_max_abs_err=err32,
+               f32_ssm_state_max_abs_err=err_st,
+               dropped_kv_block_bf16_err=mut16,
+               dropped_kv_block_bf16_caught=mut16 > bound16,
+               dropped_kv_block_f32_err=mut32,
+               dropped_kv_block_f32_caught=not mut_ok32)
+    log("small prefill:", json.dumps(row))
+    if not (err16 <= bound16 and same and ok32 and ok_st):
+        raise AssertionError(f"small prefill: kernels vs plain {row}")
+    if mut_ok32:
+        raise AssertionError(
+            f"small prefill: the f32 check passed K3 dropping a kv block {row}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -417,8 +790,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.build_all()
-    build.library("kernel_matrix")
-    build.library("solver")
+    for name in build.SOURCES:
+        build.library(name)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in build.BUILD_LOG.items():
         for line in text.splitlines():
@@ -434,7 +807,7 @@ def main() -> int:
         rows.append(row)
     counts = ops.launch_counts()
     log("launches on the main path:", json.dumps(counts))
-    if min(counts.values()) < 1:
+    if min(counts["kernel_matrix"], counts["solver"]) < 1:
         raise AssertionError(f"a kernel did not run on the main path: {counts}")
     check_balance(rows[0])
 
@@ -442,6 +815,19 @@ def main() -> int:
 
     check_small_input(dev)
 
+    k3_rows = check_k3(dev)
+    k4 = check_k4(dev)
+    torch.cuda.empty_cache()
+    _, serve_counts = serve_path()
+    torch.cuda.empty_cache()
+    check_small_prefill(dev)
+
+    # K3's entry is the SWA layer in bf16 (29 of the 32 launches); the
+    # global layer's row rides along.
+    k3 = next(r for r in k3_rows if r["layer"] == "swa" and
+              r["dtype"] == "bfloat16")
+    k3_global = next(r for r in k3_rows if r["layer"] == "global" and
+                     r["dtype"] == "bfloat16")
     kernels = [
         dict(name="kernel_matrix", route="cuda",
              source="src/repro_torch/kernels/csrc/kernel_matrix.cu",
@@ -455,6 +841,23 @@ def main() -> int:
              launches=counts["solver"], max_abs_err=k2["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None, shape=k2["shape"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:90",
+             launches=serve_counts["flash_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in k3_rows),
+             ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
+             bound_by=k3["bound_by"], library_ms=k3["library_ms"],
+             shape=k3["shape"], window=k3["window"],
+             global_layer={key: k3_global[key] for key in
+                           ("ms", "plain_ms", "bound_ms", "library_ms")}),
+        dict(name="ssd", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd.cu",
+             replaces="src/repro/kernels/ssd.py:83",
+             launches=serve_counts["ssd"], max_abs_err=k4["max_abs_err"],
+             ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             bound_by=k4["bound_by"], library_ms=None, shape=k4["shape"],
+             library_note="no single PyTorch call computes the chunked scan"),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -21,11 +21,14 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 #: kernel library name -> its translation unit (headers are shared).
-SOURCES = {"kernel_matrix": "kernel_matrix.cu", "solver": "solver.cu"}
+SOURCES = {"kernel_matrix": "kernel_matrix.cu", "solver": "solver.cu",
+           "flash_attention": "flash_attention.cu", "ssd": "ssd.cu"}
 HEADERS = ("tiles.cuh",)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -111,6 +114,11 @@ _SIGNATURES = {
     "solver": ("k2", "k2_solve_lanes",
                [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                 _F, _F, _F, _P]),
+    "flash_attention": ("k3", "k3_flash_attention",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P]),
+    "ssd": ("k4", "k4_ssd_scan",
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 
@@ -131,3 +139,17 @@ def check(lib: ctypes.CDLL, prefix: str, rc: int) -> None:
     if rc != 0:
         msg = getattr(lib, f"{prefix}_error_string")(rc).decode()
         raise RuntimeError(f"{prefix} launch failed: CUDA error {rc} ({msg})")
+
+
+def check_tensor(t: torch.Tensor, name: str, shape: tuple,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` and
+    ``dtype``: what every kernel's C interface assumes of its pointers."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -11,9 +11,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rbf, ref, solver
+from repro_torch.kernels import ssd as _ssd
 
-COUNTERS = (rbf.LAUNCHES, solver.LAUNCHES)
+COUNTERS = (rbf.LAUNCHES, solver.LAUNCHES, _flash.LAUNCHES, _ssd.LAUNCHES)
 
 
 def reset_launches() -> None:
@@ -60,3 +62,21 @@ def solve_lanes_gram(kp: torch.Tensor, y: torch.Tensor, c_box: torch.Tensor,
     mode) -> ``(alpha, f)``, each (P, G, L, n)."""
     fn = solver.solve_lanes_gram_cuda if _on_card(kp) else ref.solve_lanes_gram
     return fn(kp, y, c_box, n_epochs=n_epochs)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax GQA attention ``q (b, hq, sq, dh)`` against ``k, v
+    (b, hkv, skv, dh)`` with causal / sliding-window masks (K3)."""
+    fn = _flash.flash_attention_cuda if _on_card(q) else ref.flash_attention
+    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+             cmat: torch.Tensor, chunk: int = 128
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked Mamba2 SSD scan in the model's layout -> ``(y (b, s, nh, dh),
+    final_state (b, nh, dh, ds))`` (K4)."""
+    fn = _ssd.ssd_scan_cuda if _on_card(x) else ref.ssd_scan
+    return fn(x, a, bmat, cmat, chunk=chunk)

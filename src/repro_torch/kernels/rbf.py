@@ -49,17 +49,6 @@ def kernel_matrix_plain(x: torch.Tensor, sv: torch.Tensor,
     raise ValueError(f"no kernel matrix for kind {kind!r}")
 
 
-def _check(t: torch.Tensor, name: str, shape: tuple) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def kernel_matrix_cuda(x: torch.Tensor, sv: torch.Tensor,
                        gamma: torch.Tensor, kind: str = "rbf",
                        n_slope: float = 1.38, v_t: float = 0.02585,
@@ -69,9 +58,9 @@ def kernel_matrix_cuda(x: torch.Tensor, sv: torch.Tensor,
         raise ValueError(f"no kernel matrix for kind {kind!r}")
     p, m, d = sv.shape
     n = x.shape[0]
-    _check(x, "x", (n, d))
-    _check(sv, "sv", (p, m, d))
-    _check(gamma, "gamma", (p,))
+    build.check_tensor(x, "x", (n, d))
+    build.check_tensor(sv, "sv", (p, m, d))
+    build.check_tensor(gamma, "gamma", (p,))
     if x.device != sv.device or x.device != gamma.device:
         raise ValueError("x, sv and gamma must be on one device")
     out = torch.empty((p, n, m), dtype=torch.float32, device=x.device)

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rbf import _check, sech2_consts
+from repro_torch.kernels.rbf import sech2_consts
 
 KINDS = {"linear": 0, "rbf": 1, "sech2": 2}
 GRAM = 3
@@ -64,10 +64,10 @@ def solve_lanes_cuda(x: torch.Tensor, y: torch.Tensor, c_box: torch.Tensor,
         raise ValueError(f"no tile body for kernel kind {kind!r}")
     p, n, d = x.shape
     g, l = gamma.shape[1], c_box.shape[1]
-    _check(x, "x", (p, n, d))
-    _check(y, "y", (p, n))
-    _check(c_box, "c_box", (p, l, n))
-    _check(gamma, "gamma", (p, g))
+    build.check_tensor(x, "x", (p, n, d))
+    build.check_tensor(y, "y", (p, n))
+    build.check_tensor(c_box, "c_box", (p, l, n))
+    build.check_tensor(gamma, "gamma", (p, g))
     return _launch(x, y, c_box, gamma, None, KINDS[kind], p, g, l, n, d,
                    n_epochs, sech2_consts(n_slope, v_t, v_scale))
 
@@ -79,8 +79,8 @@ def solve_lanes_gram_cuda(kp: torch.Tensor, y: torch.Tensor,
     ``y (P, n)``, ``c_box (P, L, n)`` -> ``(alpha, f)`` (P, G, L, n)."""
     p, g, n, _ = kp.shape
     l = c_box.shape[1]
-    _check(kp, "kp", (p, g, n, n))
-    _check(y, "y", (p, n))
-    _check(c_box, "c_box", (p, l, n))
+    build.check_tensor(kp, "kp", (p, g, n, n))
+    build.check_tensor(y, "y", (p, n))
+    build.check_tensor(c_box, "c_box", (p, l, n))
     return _launch(None, y, c_box, None, kp, GRAM, p, g, l, n, 0, n_epochs,
                    (1.0, 1.0, 1.0))

@@ -7,13 +7,14 @@ These need an NVIDIA GPU (a CUDA kernel has no CPU mode): they carry the
 
 This file imports neither JAX nor the reference package, so it runs where
 only the port is installed.  Tolerances are those of
-tests/test_torch_kernels.py.
+tests/test_torch_kernels.py (K1, K2) and tests/test_torch_lm_kernels.py
+(K3: 2e-5 in f32, 2e-2 in bf16; K4: atol 1e-4).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import rbf, ref, solver
+from repro_torch.kernels import flash_attention, rbf, ref, solver, ssd
 
 
 def _t(a):
@@ -85,3 +86,104 @@ def test_k2_har12_width_dynamic_shared_memory(card, kind):
                                atol=5e-4, rtol=1e-3)
     np.testing.assert_allclose(f.cpu().numpy(), f_p.cpu().numpy(),
                                atol=5e-3, rtol=1e-3)
+
+
+def _qkv(seed, b, hq, hkv, sq, skv, dh, dtype, dev):
+    rng = np.random.RandomState(seed)
+    return [torch.as_tensor(rng.randn(*shape), dtype=torch.float32)
+            .to(device=dev, dtype=dtype)
+            for shape in ((b, hq, sq, dh), (b, hkv, skv, dh), (b, hkv, skv, dh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None)])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_k3_kernel_matches_plain(card, dtype, causal, window, dh):
+    q, k, v = _qkv(3, 2, 10, 2, 200, 200, dh, dtype, card)
+    got = flash_attention.flash_attention_cuda(q, k, v, causal, window)
+    want = ref.flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [64, 100])
+def test_k3_ragged_and_q_offset(card, sq):
+    q, k, v = _qkv(4, 1, 4, 2, sq, sq, 32, torch.float32, card)
+    got = flash_attention.flash_attention_cuda(q, k, v)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ref.attention(q, k, v).cpu().numpy(), atol=2e-5)
+    q, k, v = _qkv(5, 1, 4, 2, sq, sq + 70, 32, torch.float32, card)
+    got = flash_attention.flash_attention_cuda(q, k, v, window=40, q_offset=70)
+    want = ref.flash_attention(q, k, v, window=40, q_offset=70)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
+
+
+def _ssd(seed, b, s, h, dh, g, ds, dev):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, s, h, dh) * 0.3
+    a = -np.abs(rng.randn(b, s, h)) * 0.3
+    bm = rng.randn(b, s, g, ds) * 0.3
+    cm = rng.randn(b, s, g, ds) * 0.3
+    return [_t(t).to(dev) for t in (x, a, bm, cm)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,chunk", [(128, 32), (256, 64), (256, 128)])
+@pytest.mark.parametrize("dh,g,ds", [(16, 2, 8), (64, 1, 16)])
+def test_k4_kernel_matches_plain(card, s, chunk, dh, g, ds):
+    x, a, bm, cm = _ssd(s + chunk, 2, s, 4, dh, g, ds, card)
+    y, s_fin = ssd.ssd_scan_cuda(x, a, bm, cm, chunk)
+    y_p, s_p = ref.ssd_scan(x, a, bm, cm, chunk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.cpu().numpy(), y_p.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(s_fin.cpu().numpy(), s_p.cpu().numpy(),
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k4_padded_sequence(card):
+    """A sequence padded with zeros (through ``ssm.ssd_chunked``) whose y
+    and final state equal the sequential oracle's on the unpadded one."""
+    from repro_torch.models import ssm as ssm_mod
+
+    x, a, bm, cm = _ssd(9, 1, 128, 4, 64, 1, 16, card)
+    n = 100
+    y, s_fin = ssm_mod.ssd_chunked(x[:, :n], a[:, :n], bm[:, :n], cm[:, :n],
+                                   chunk=32)
+    y_r, s_r = ref.ssd(x[:, :n], a[:, :n], bm[:, :n], cm[:, :n])
+    np.testing.assert_allclose(y.cpu().numpy(), y_r.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(s_fin.cpu().numpy(), s_r.cpu().numpy(),
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_reduced_hymba_prefill_card_matches_cpu(card):
+    """The reduced hymba prefill through K3 and K4 on the card against the
+    plain versions on the CPU, same weights: logits atol 1e-4."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine
+
+    cfg = configs.get("hymba-1.5b").reduced()
+    host = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    on_card.to(card)
+    toks = torch.as_tensor(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (2, 96)))
+    ops.reset_launches()
+    st_c, lg_c = engine.prefill(cfg, on_card, {"tokens": toks.to(card)}, 120)
+    counts = ops.launch_counts()
+    st_h, lg_h = engine.prefill(cfg, host, {"tokens": toks}, 120)
+    assert counts["flash_attention"] == counts["ssd"] == cfg.n_layers
+    np.testing.assert_allclose(lg_c.cpu().numpy(), lg_h.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(st_c["ssm"].cpu().numpy(), st_h["ssm"].numpy(),
+                               atol=1e-4, rtol=1e-4)

@@ -210,7 +210,12 @@ def test_cpu_tensors_run_the_plain_versions_uncounted():
     x, y, c_box, gamma = _lanes(1, 1, 10, 2, 1, 1)
     ops.solve_lanes(_t(x), _t(y), _t(c_box), _t(gamma), n_epochs=2)
     ops.rbf_matrix(_t(x[0]), _t(x), _t(gamma[:, 0]))
-    assert ops.launch_counts() == {"kernel_matrix": 0, "solver": 0}
+    q = torch.zeros((1, 2, 8, 32))
+    ops.flash_attention(q, q[:, :1], q[:, :1])
+    xs = torch.zeros((1, 32, 2, 16))
+    ops.ssd_scan(xs, xs[..., 0], xs[:, :, :1], xs[:, :, :1], chunk=32)
+    assert ops.launch_counts() == {"kernel_matrix": 0, "solver": 0,
+                                   "flash_attention": 0, "ssd": 0}
 
 
 def test_other_devices_and_cpu_tensors_never_reach_a_kernel():
