@@ -7,11 +7,13 @@ Phases, in order; any failure exits nonzero before the result line:
 
 1. Environment and build: the card's name and power limit, f32 matmuls
    without TF32, and the hand kernels built from ``src/repro_torch/kernels/
-   csrc`` (one ``nvcc`` per source, in parallel).
+   csrc`` (one ``nvcc`` per source, in parallel), with ptxas's registers,
+   shared memory and spills of every kernel instance.
 2. Each hand kernel against its plain PyTorch version on the card: max abs
    error, kernel and plain times (CUDA events after warm-up) and the least
-   time the card could take.  K2 runs on the Table II CV lanes and on
-   har12-width lanes (n = 1582, d = 5) before the main path; K1 runs after
+   time the card could take.  K2 runs in all four modes (linear, rbf,
+   sech2, Gram input) on balance's Table II CV lanes and on har12-width
+   lanes (n = 1582, d = 5) before the main path; K1 runs after
    it, on the kernel banks the main path deployed, and at har12's width
    (1875 queries x 1582 rows of a padded training set, d = 5).
 3. The main path, paper Algorithm 1, for balance, seeds and vertebral at
@@ -26,14 +28,18 @@ Phases, in order; any failure exits nonzero before the result line:
    support sets and scores.
 5. The LM kernels against their plain versions on the card at the shapes
    of hymba-1.5b's prefill of 4 x 2048 tokens: K3 (flash attention) on a
-   global layer (causal) and an SWA layer (window 1024), in bf16 and f32,
-   with ``scaled_dot_product_attention`` timed on the same tensors; K4 (SSD
+   global layer (causal) and an SWA layer (window 1024), in bf16 (the
+   tensor-core kernel) and f32 (the CUDA-core kernel), with
+   ``scaled_dot_product_attention`` timed on the same tensors; the
+   tensor-core kernel with its window narrowed by one kv block must fail
+   the bf16 check (a planted fault); K4 (SSD
    scan) at (b, s, nh, dh, ds) = (4, 2048, 50, 64, 16), chunk 128.
 6. The LM serving path, hymba-1.5b at full width (32 layers, d_model 1600,
    random init from a seed): ``repro_torch.launch.serve.main`` answers 4
    prompts of 2048 tokens and samples 32 tokens each.  The launch counters
    are zeroed just before and read just after: exactly 32 K3 and 32 K4
-   launches (one per layer in the one prefill; decode launches neither).
+   launches (one per layer in the one prefill; decode launches neither),
+   all 32 K3 launches on the tensor-core kernel.
    Then one more prefill at the same shape, timed warm, and one traced
    prefill and decode step (``torch.profiler``): device time by kernel
    group and the device's idle share.
@@ -98,6 +104,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_report(text: str) -> list[tuple[str, str]]:
+    """(kernel<instance>, "registers, shared memory, spills") per entry
+    function of one library's ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, kernel, parts = [], None, []
+    for line in text.splitlines() + ["Compiling entry function 'end'"]:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            if kernel:
+                out.append((kernel, "; ".join(parts)))
+            k = re.search(r"\d+([A-Za-z_]+_kernel)ILi(\d+)E", m.group(1))
+            kernel = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)[:60]
+            parts = []
+        elif "spill" in line or "registers" in line:
+            parts.append(line.split(":", 1)[-1].strip())
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -237,26 +262,31 @@ def check_k2(dev) -> tuple[dict, list]:
     cv_epochs = max(60, 200 // 2)      # the estimator's default CV epochs
     ds, padded, x, y, c_box, gam = lanes_inputs("balance", dev)
     hw = trainer.default_hw(0)
-    kp_hw = svm.callable_grams(
-        trainer._training_kernel(hw.kernel_response, dev), x,
-        torch.as_tensor(trainer.hw_gamma_grid(hw), dtype=torch.float32,
-                        device=dev)[None].expand(x.shape[0], -1)).contiguous()
-    cases = [("balance", kind, cv_epochs) for kind in
-             ("linear", "rbf", "sech2", "gram")]
-    cases += [("har12", kind, 3) for kind in ("rbf", "sech2")]
+    hw_kernel = trainer._training_kernel(hw.kernel_response, dev)
+    kp_gammas = torch.as_tensor(trainer.hw_gamma_grid(hw),
+                                dtype=torch.float32, device=dev)[None]
+    kp_hw = svm.callable_grams(hw_kernel, x, kp_gammas.expand(
+        x.shape[0], -1)).contiguous()
+    cases = [(name, kind, cv_epochs if name == "balance" else 3)
+             for name in ("balance", "har12")
+             for kind in ("linear", "rbf", "sech2", "gram")]
+    _, padded_h, xh, yh, ch, gh = lanes_inputs("har12", dev)
+    top = torch.argsort(torch.tensor(padded_h.n_true),
+                        descending=True)[:2].to(dev)
     for name, kind, epochs in cases:
         if name == "har12":
-            _, padded_h, xh, yh, ch, gh = lanes_inputs("har12", dev)
-            top = torch.argsort(torch.tensor(padded_h.n_true),
-                                descending=True)[:2].to(dev)
             xs, ys = xh[top].contiguous(), yh[top].contiguous()
             cb, gs = ch[top][:, :2].contiguous(), gh[top][:, :1].contiguous()
         else:
             xs, ys, cb = x, y, c_box
             gs = gam[:, :1].contiguous() if kind == "linear" else gam
+        kp = None
         if kind == "gram":
-            run = lambda: solver.solve_lanes_gram_cuda(kp_hw, ys, cb, epochs)
-            plain = lambda: ref.solve_lanes_gram(kp_hw, ys, cb, epochs)
+            kp = kp_hw if name == "balance" else svm.callable_grams(
+                hw_kernel, xs, kp_gammas[:, :1].expand(xs.shape[0], -1)
+            ).contiguous()
+            run = lambda: solver.solve_lanes_gram_cuda(kp, ys, cb, epochs)
+            plain = lambda: ref.solve_lanes_gram(kp, ys, cb, epochs)
         else:
             run = lambda: solver.solve_lanes_cuda(xs, ys, cb, gs, kind,
                                                   epochs)
@@ -275,16 +305,18 @@ def check_k2(dev) -> tuple[dict, list]:
         ms = cuda_ms(run, reps=3, warmup=1)
         plain_ms = cuda_ms(plain, reps=1, warmup=0)
         p, n = ys.shape
-        g = kp_hw.shape[1] if kind == "gram" else gs.shape[1]
+        g = kp.shape[1] if kind == "gram" else gs.shape[1]
         lanes = p * g * cb.shape[1]
         d = 0 if kind == "gram" else xs.shape[2]
         n_bytes = 4 * (p * n * (d + 1) + cb.numel() + 2 * lanes * n
-                       + (kp_hw.numel() if kind == "gram" else gs.numel()))
+                       + (kp.numel() if kind == "gram" else gs.numel()))
         n_true = (torch.as_tensor(padded_h.n_true)[top.cpu()]
                   if name == "har12" else padded.n_true)
         b, by = bound_ms(n_bytes, k2_ops(cb, n_true, g, epochs, kind, d))
+        steps = (epochs + 1) * -(-n // 16)   # coordinate blocks + final pass
         row = dict(name=name, kind=kind, shape=[p, g, cb.shape[1], n, d],
                    epochs=epochs, serial_chain=epochs * n,
+                   us_per_block_step=ms * 1e3 / steps,
                    max_abs_err=max(float((a - a_p).abs().max()),
                                    float((f - f_p).abs().max())),
                    max_rel_lane_err=max(err_a, err_f), ms=ms,
@@ -482,6 +514,18 @@ def check_k3(dev) -> list:
                 lib = lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=True)
             lib_err = float((lib().float() - want.float()).abs().max())
+            fault = {}
+            if window is not None and dtype == torch.bfloat16:
+                # The planted fault on the tensor-core kernel: its window
+                # narrowed by one kv block must fail the same check.
+                bad = _k3_dropping_a_kv_block(q, k, v, True, window)
+                caught, bad_err = within(bad.float(), want.float(), tol, tol)
+                fault = dict(dropped_kv_block_err=bad_err,
+                             dropped_kv_block_caught=not caught)
+                if caught:
+                    raise AssertionError(
+                        f"K3 {layer} {dtype}: the {tol} check passed the "
+                        f"kernel dropping a kv block (err {bad_err})")
             pairs = attn_live_pairs(s, s, True, window)
             n_ops = 4 * dh * pairs * b * hq
             n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
@@ -493,7 +537,7 @@ def check_k3(dev) -> list:
                        plain_ms=cuda_ms(plain, reps=3),
                        library_ms=cuda_ms(lib, reps=10),
                        library_max_abs_err=lib_err, bound_ms=bnd,
-                       bound_by=by)
+                       bound_by=by, **fault)
             rows.append(row)
             log("K3", json.dumps(row))
         del q, k, v
@@ -581,7 +625,7 @@ def device_breakdown(fn) -> dict:
         n_kernels += 1
         name = evt.name
         by_name[name] = by_name.get(name, 0.0) + us / 1e3
-        if "flash_kernel" in name:
+        if "flash_kernel" in name or "flash_wgmma_kernel" in name:
             groups["K3 flash_attention"] += us / 1e3
         elif "ssd_kernel" in name:
             groups["K4 ssd"] += us / 1e3
@@ -618,11 +662,13 @@ def serve_path() -> tuple[dict, dict]:
     cfg, toks = out["cfg"], out["tokens"]
     if (cfg.n_layers, cfg.d_model) != (32, 1600):
         raise AssertionError(f"not the full config: {cfg}")
-    for name in ("flash_attention", "ssd"):
+    for name in ("flash_attention", "flash_attention_bf16_wgmma", "ssd"):
         if counts[name] != cfg.n_layers:
             raise AssertionError(
                 f"{name}: {counts[name]} launches, expected {cfg.n_layers} "
                 "(one per layer in one prefill)")
+    if counts["flash_attention_f32_cuda_cores"] != 0:
+        raise AssertionError("the bf16 prefill ran the f32 CUDA-core K3")
     if toks.shape != (4, 32) or int(toks.min()) < 0 or \
             int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {toks.shape}")
@@ -794,9 +840,8 @@ def main() -> int:
         build.library(name)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "smem" in line:
-                log(f"ptxas[{name}]:", line.strip())
+        for kernel, report in ptxas_report(text):
+            log(f"ptxas[{name}] {kernel}: {report}")
 
     k2, k2_rows = check_k2(dev)
 
@@ -838,13 +883,21 @@ def main() -> int:
         dict(name="solver", route="cuda",
              source="src/repro_torch/kernels/csrc/solver.cu",
              replaces="src/repro/kernels/solver.py:126",
+             design="one warp per lane; the lanes of a (pair, gamma) share "
+                    "a CTA and each K' slab in shared memory",
              launches=counts["solver"], max_abs_err=k2["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None, shape=k2["shape"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:90",
+             design="bf16: flash_wgmma_kernel (TMA + mbarrier ring + wgmma, "
+                    "tensor cores); f32: flash_kernel (CUDA cores)",
              launches=serve_counts["flash_attention"],
+             launches_by_variant={
+                 "bf16_wgmma": serve_counts["flash_attention_bf16_wgmma"],
+                 "f32_cuda_cores":
+                     serve_counts["flash_attention_f32_cuda_cores"]},
              max_abs_err=max(r["max_abs_err"] for r in k3_rows),
              ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by=k3["bound_by"], library_ms=k3["library_ms"],

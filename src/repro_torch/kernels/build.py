@@ -7,6 +7,10 @@ together, one ``nvcc`` process per source, at first use.  Libraries are
 named by a hash of the sources and flags, so an edited source is rebuilt,
 and land in ``build/repro_torch_kernels/`` at the root of the checkout.
 
+No library links against the CUDA driver: K3's tensor-core kernel gets
+``cuTensorMapEncodeTiled`` (its TMA descriptors) from the already loaded
+``libcuda.so.1`` with ``dlsym`` at its first launch.
+
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
 """

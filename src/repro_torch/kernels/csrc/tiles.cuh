@@ -1,5 +1,7 @@
-// Tile bodies shared by the kernel-matrix kernel (kernel_matrix.cu) and the
-// fused dual-ascent solver (solver.cu): one kernel value K(x, z) per call.
+// Tile bodies of the kernel-matrix kernel (kernel_matrix.cu): one kernel
+// value K(x, z) per call.  The fused dual-ascent solver (solver.cu) shares
+// the kinds, the sech2 constants and softplus, and repeats these bodies in
+// its own layout (fill_column), in the same arithmetic order.
 //
 // Counterparts of repro/kernels/rbf.py linear_tile / rbf_tile / sech2_tile,
 // resolved there by tile_body().  The arithmetic is f32 throughout:

@@ -15,7 +15,8 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rbf, ref, solver
 from repro_torch.kernels import ssd as _ssd
 
-COUNTERS = (rbf.LAUNCHES, solver.LAUNCHES, _flash.LAUNCHES, _ssd.LAUNCHES)
+COUNTERS = (rbf.LAUNCHES, solver.LAUNCHES, _flash.LAUNCHES, _flash.LAUNCHES_TC,
+            _flash.LAUNCHES_F32, _ssd.LAUNCHES)
 
 
 def reset_launches() -> None:

@@ -4,21 +4,24 @@ CUDA C++ for Hopper (``csrc/solver.cu``, tile bodies shared with K1 from
 
 Replaces the Pallas TPU kernel
 ``repro/kernels/solver.py::dual_ascent_lanes_pallas`` (body
-``_solver_kernel``).  One thread block per lane on the grid (P, G, L): a
-lane is one (pair, gamma, C x fold) cell.  The lane's state stays in shared
-memory for the whole epoch loop and every (16, n) Gram row slab is
-recomputed from x by the tile bodies, so no Gram matrix is stored.  Outputs
-are ``alpha`` and the final margins ``f = K'(alpha * y)``, each
-``(P, G, L, n)``.  The update order is that of the oracle
-``repro/core/trainer.py::dual_coordinate_ascent_blocked``.
+``_solver_kernel``).  A lane is one (pair, gamma, C x fold) cell of the
+grid (P, G, L); it runs on one warp, and the lanes of one (pair, gamma)
+share a CTA, whose (16, n) slabs of K' = K + 1 are computed once per
+coordinate block into shared memory (from x by the tile bodies, so no Gram
+matrix is stored) and read by every lane.  The host splits each cell's
+lanes over as many CTAs as fill the SMs once.  Outputs are ``alpha`` and
+the final margins ``f = K'(alpha * y)``, each ``(P, G, L, n)``.  The update
+order is that of the oracle
+``repro/core/trainer.py::dual_coordinate_ascent_blocked``; labels are +-1.
 
 A Gram-input mode (``solve_lanes_gram_cuda``) runs the same update
 sequence on stored Grams ``(P, G, n, n)``: the hardware measured-curve
 kernel of hardware-in-the-loop training has no tile body.
 
 What bounds it on the card: each lane is a serial chain of
-``n_epochs * n`` dependent coordinate updates with a short parallel margin
-pass per block of ``ref.SOLVER_BLOCK`` = 16 coordinates; lanes, not coordinates, fill the 132 SMs.
+``n_epochs * n`` dependent coordinate updates with a margin pass over all
+n columns per block of ``ref.SOLVER_BLOCK`` = 16 coordinates; lanes, not
+coordinates, fill the 132 SMs.
 
 Beside it: the plain versions (``ref.solve_lanes`` /
 ``ref.solve_lanes_gram``) and the launch counter ``LAUNCHES``.

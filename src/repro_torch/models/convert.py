@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
@@ -62,11 +63,13 @@ def _block(cfg: ModelConfig, lt: dict, i: int, device, dtype) -> tfm.Block:
                       for n in ("wg", "wu", "wd"))))
 
 
-def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu",
+def params_from_numpy(cfg: ModelConfig, tree: dict, device=None,
                       dtype: torch.dtype | None = None) -> tfm.Transformer:
     """The reference's parameters (numpy, layers stacked) as the port's
-    ``Transformer`` on ``device``."""
+    ``Transformer`` on ``device`` (``None``: the card, see
+    ``repro_torch.device.resolve_device``)."""
     tfm._require_ported(cfg)
+    device = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
     layers = [_block(cfg, tree["layers"], i, device, dtype)
               for i in range(cfg.n_layers)]

@@ -73,19 +73,49 @@ def test_k2_kernel_matches_plain(card, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["rbf", "sech2"])
+@pytest.mark.parametrize("kind", ["linear", "rbf", "sech2", "gram"])
 def test_k2_har12_width_dynamic_shared_memory(card, kind):
     """n = 1582, d = 5: the lane state exceeds the 48 KB default, so the
-    launch raises the block's dynamic shared-memory limit."""
+    launch raises the block's dynamic shared-memory limit; the K' slabs
+    span four column chunks."""
     x, y, c_box, gamma = (_t(a).to(card)
                           for a in _lanes(5, 1, 1582, 5, 1, 2))
-    a, f = solver.solve_lanes_cuda(x, y, c_box, gamma, kind, 2)
-    a_p, f_p = ref.solve_lanes(x, y, c_box, gamma, kind, 2)
+    if kind == "gram":
+        kp = ref.lane_grams(x, gamma, "rbf").contiguous()
+        a, f = solver.solve_lanes_gram_cuda(kp, y, c_box, 2)
+        a_p, f_p = ref.solve_lanes_gram(kp, y, c_box, 2)
+    else:
+        a, f = solver.solve_lanes_cuda(x, y, c_box, gamma, kind, 2)
+        a_p, f_p = ref.solve_lanes(x, y, c_box, gamma, kind, 2)
+    torch.cuda.synchronize()
+    assert (a[c_box[:, None].expand_as(a) == 0] == 0).all()
+    np.testing.assert_allclose(a.cpu().numpy(), a_p.cpu().numpy(),
+                               atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(f.cpu().numpy(), f_p.cpu().numpy(),
+                               atol=5e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "rbf", "sech2", "gram"])
+@pytest.mark.parametrize("p,g,l", [(3, 7, 35), (1, 1, 3), (2, 3, 5)])
+def test_k2_lane_groups_that_do_not_fill_a_cta(card, kind, p, g, l):
+    """Lane counts that leave the last CTA of a (pair, gamma) cell short
+    (balance's (3, 7, 35): 6 CTAs of 6, 6, 6, 6, 6 and 5 lanes), n = 45
+    (not a multiple of 16), rows with c_box = 0 exactly 0."""
+    x, y, c_box, gamma = (_t(a).to(card) for a in _lanes(7, p, 45, 4, g, l))
+    if kind == "gram":
+        kp = ref.lane_grams(x, gamma, "rbf").contiguous()
+        a, f = solver.solve_lanes_gram_cuda(kp, y, c_box, 10)
+        a_p, f_p = ref.solve_lanes_gram(kp, y, c_box, 10)
+    else:
+        a, f = solver.solve_lanes_cuda(x, y, c_box, gamma, kind, 10)
+        a_p, f_p = ref.solve_lanes(x, y, c_box, gamma, kind, 10)
     torch.cuda.synchronize()
     np.testing.assert_allclose(a.cpu().numpy(), a_p.cpu().numpy(),
                                atol=5e-4, rtol=1e-3)
     np.testing.assert_allclose(f.cpu().numpy(), f_p.cpu().numpy(),
                                atol=5e-3, rtol=1e-3)
+    assert (a[c_box[:, None].expand_as(a) == 0] == 0).all()
 
 
 def _qkv(seed, b, hq, hkv, sq, skv, dh, dtype, dev):
@@ -123,6 +153,44 @@ def test_k3_ragged_and_q_offset(card, sq):
     want = ref.flash_attention(q, k, v, window=40, q_offset=70)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_offset", [0, 37])
+@pytest.mark.parametrize("sq", [64, 100, 200])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None)])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_k3_tensor_core_kernel_matches_plain(card, dh, causal, window, sq,
+                                             q_offset):
+    """bf16 through the wgmma / TMA kernel: GQA group 5, ragged sq (TMA
+    zero-fills past the end; the masks still decide), a q block offset in
+    the kv sequence.  Tolerance 2e-2, the reference's bf16 sweep."""
+    q, k, v = _qkv(6, 2, 10, 2, sq, sq + q_offset, dh, torch.bfloat16, card)
+    before = (flash_attention.LAUNCHES_TC.count,
+              flash_attention.LAUNCHES_F32.count)
+    got = flash_attention.flash_attention_cuda(q, k, v, causal, window,
+                                               q_offset)
+    want = ref.flash_attention(q, k, v, causal, window, q_offset)
+    torch.cuda.synchronize()
+    assert (flash_attention.LAUNCHES_TC.count,
+            flash_attention.LAUNCHES_F32.count) == (before[0] + 1, before[1])
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_k3_tensor_core_kernel_fails_with_a_narrowed_window(card):
+    """Negative control: the tensor-core kernel run with its window narrowed
+    by one kv block (64 keys) must fail the 2e-2 check it passes above."""
+    q, k, v = _qkv(8, 1, 5, 1, 512, 512, 64, torch.bfloat16, card)
+    got = flash_attention.flash_attention_cuda(q, k, v, True, 256 - 64)
+    want = ref.flash_attention(q, k, v, True, 256)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    assert not bool((err <= 2e-2 + 2e-2 * want.float().abs()).all())
 
 
 def _ssd(seed, b, s, h, dh, g, ds, dev):

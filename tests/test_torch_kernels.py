@@ -214,8 +214,10 @@ def test_cpu_tensors_run_the_plain_versions_uncounted():
     ops.flash_attention(q, q[:, :1], q[:, :1])
     xs = torch.zeros((1, 32, 2, 16))
     ops.ssd_scan(xs, xs[..., 0], xs[:, :, :1], xs[:, :, :1], chunk=32)
-    assert ops.launch_counts() == {"kernel_matrix": 0, "solver": 0,
-                                   "flash_attention": 0, "ssd": 0}
+    assert ops.launch_counts() == {
+        "kernel_matrix": 0, "solver": 0, "flash_attention": 0,
+        "flash_attention_bf16_wgmma": 0, "flash_attention_f32_cuda_cores": 0,
+        "ssd": 0}
 
 
 def test_other_devices_and_cpu_tensors_never_reach_a_kernel():

@@ -219,6 +219,28 @@ def test_prefill_and_40_decode_steps_match_reference(model):
                                    err_msg=name)
 
 
+def test_params_from_numpy_runs_on_the_card_unless_asked(model,
+                                                          monkeypatch):
+    """The carrier's device is ``None`` -> the card, as every entry point:
+    without a card it raises; ``device="cpu"`` carries the same weights and
+    gives the reference's prefill logits."""
+    cfg, r_cfg, params, tree, port = model
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            params_from_numpy(cfg, tree)
+    on_cpu = params_from_numpy(cfg, tree, device="cpu")
+    assert on_cpu.embed.device.type == "cpu"
+    toks = _tokens(cfg, 1, 40, seed=7)
+    _, lg = engine.prefill(cfg, on_cpu, {"tokens": torch.as_tensor(toks)}, 48)
+    _, lg_port = engine.prefill(cfg, port, {"tokens": torch.as_tensor(toks)},
+                                48)
+    _, lg_r = r_engine.prefill(r_cfg, params, {"tokens": jnp.asarray(toks)},
+                               48, RULES)
+    assert torch.equal(lg, lg_port)
+    np.testing.assert_allclose(_np(lg), _np(lg_r), **TOL)
+
+
 def test_bf16_prefill_and_decode_match_reference(model):
     """The reduced config in bf16: weights stored in bf16 by the carrier
     (the reference casts its f32 weights at use, the same values)."""
