@@ -98,6 +98,9 @@ def build_all() -> dict[str, Path]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built (with the others) on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         if name not in _LIBS:
             paths = build_all()
@@ -122,7 +125,8 @@ _SIGNATURES = {
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P]),
     "ssd": ("k4", "k4_ssd_scan",
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+             _P]),
 }
 
 
@@ -153,7 +157,20 @@ def check_tensor(t: torch.Tensor, name: str, shape: tuple,
         raise ValueError(f"{name} must be a CUDA tensor")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
+    if t.shape != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """Call the C launcher ``fn(*args, stream)`` with ``device``'s current
+    stream, as the current device.  The device is switched only when it is
+    not the current one already, and the stream is read as a raw handle
+    (PyTorch's own launch path), so the common call costs a few attribute
+    reads."""
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))

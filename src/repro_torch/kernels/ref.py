@@ -304,3 +304,75 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
         state = torch.exp(total)[..., None, None] * state + torch.einsum(
             "blhd,blhs->bhds", xk, bk * w[..., None])
     return torch.cat(ys, dim=1), state
+
+
+def ssd_chunk_states(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                     chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K4's first pass (``ssd_chunk_state_kernel``): each
+    chunk's inclusive ``cum = cumsum(a)`` and its own contribution to the
+    state, ``dS = x^T (B * exp(cum_L - cum))``.
+
+    Inputs as ``ssd_scan``'s.  Returns ``(cum (b, nh, s), states (b, nh,
+    s // chunk, dh, ds))``, both f32.
+    """
+    b, s, nh, dh = x.shape
+    g, ds = bmat.shape[2], bmat.shape[3]
+    nc = s // chunk
+    cum = torch.cumsum(a.float().reshape(b, nc, chunk, nh), dim=2)
+    w = torch.exp(cum[:, :, -1:] - cum)                   # (b, nc, L, nh)
+    bk = torch.repeat_interleave(bmat.float(), nh // g, dim=2).reshape(
+        b, nc, chunk, nh, ds)
+    states = torch.einsum("bclhd,bclhs->bhcds",
+                          x.float().reshape(b, nc, chunk, nh, dh),
+                          bk * w[..., None])
+    return cum.permute(0, 3, 1, 2).reshape(b, nh, s), states
+
+
+def ssd_state_pass(cum: torch.Tensor, states: torch.Tensor, chunk: int = 128
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K4's second pass (``ssd_state_pass_kernel``): from
+    ``S = 0``, ``S <- exp(cum_L) S + dS`` chunk by chunk.
+
+    ``cum (b, nh, s)`` and ``states (b, nh, nc, dh, ds)`` as
+    ``ssd_chunk_states`` returns them.  Returns ``(s_prev (b, nh, nc, dh,
+    ds), final_state (b, nh, dh, ds))``: the state entering each chunk, and
+    the state after the last.
+    """
+    b, nh, s = cum.shape
+    total = cum.reshape(b, nh, s // chunk, chunk)[..., -1]
+    state = torch.zeros_like(states[:, :, 0])
+    prev = []
+    for c in range(states.shape[2]):
+        prev.append(state)
+        state = torch.exp(total[:, :, c])[..., None, None] * state \
+            + states[:, :, c]
+    return torch.stack(prev, dim=2), state
+
+
+def ssd_chunk_scan(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                   cum: torch.Tensor, s_prev: torch.Tensor, chunk: int = 128
+                   ) -> torch.Tensor:
+    """Plain twin of K4's third pass (``ssd_chunk_scan_kernel``): every
+    chunk at once, ``y = ((C B^T) * decay) x + (C * exp(cum)) S_prev^T``
+    with ``decay`` selected to 0 above the diagonal, from the chunk's
+    ``cum`` and entering state ``s_prev`` -> ``y (b, s, nh, dh)``."""
+    b, s, nh, dh = x.shape
+    g, ds = bmat.shape[2], bmat.shape[3]
+    nc = s // chunk
+
+    def per_head(m):
+        return torch.repeat_interleave(m.float(), nh // g, dim=2).reshape(
+            b, nc, chunk, nh, ds)
+
+    bk, ck = per_head(bmat), per_head(cmat)
+    cumk = cum.reshape(b, nh, nc, chunk)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    logdec = cumk[..., :, None] - cumk[..., None, :]      # cum_t - cum_j
+    dec = torch.where(causal, torch.exp(torch.clamp(logdec, max=0.0)), 0.0)
+    gmat = torch.einsum("bcths,bcjhs->bhctj", ck, bk)     # C B^T
+    y_intra = torch.einsum("bhctj,bcjhd->bcthd", gmat * dec,
+                           x.float().reshape(b, nc, chunk, nh, dh))
+    ecum = torch.exp(cumk).permute(0, 2, 3, 1)            # (b, nc, L, nh)
+    y_inter = torch.einsum("bcths,bhcds->bcthd", ck * ecum[..., None], s_prev)
+    return (y_intra + y_inter).reshape(b, s, nh, dh)

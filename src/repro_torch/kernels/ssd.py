@@ -13,11 +13,14 @@ kernel's does.
 
 What bounds it on the card: the f32 operations of the two (L, L) products
 per chunk (about 1.8 MFLOP per chunk and head, causal half) against ~0.1
-MB of traffic.  One block per (batch, head) walks its chunks in order with
-the state in shared memory.
+MB of traffic.  One call is three device launches: every (batch, chunk,
+head) tile's cumsum and own state contribution, then the short state
+recurrence across chunks, then every tile's output; the wrapper allocates
+their scratch (each chunk's cumsum and state) with ``torch.empty``.
 
-Beside it: the plain version ``ref.ssd_scan`` and the launch counter
-``LAUNCHES``.
+Beside it: the plain version ``ref.ssd_scan``, the plain twins of the three
+passes (``ref.ssd_chunk_states``, ``ref.ssd_state_pass``,
+``ref.ssd_chunk_scan``) and the launch counter ``LAUNCHES`` (one per call).
 """
 from __future__ import annotations
 
@@ -28,13 +31,25 @@ from repro_torch.kernels import build
 #: hymba's ssm head dim, and the reference's Pallas test sweep's.
 HEAD_DIMS = (16, 64)
 
+#: Device launches per call: chunk states, state pass, chunk scan.
+DEVICE_LAUNCHES = 3
+
+#: x and y are read and written 16 bytes at a time.
+ALIGN = 16
+
 LAUNCHES = build.LaunchCounter("ssd")
 
 
-def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
-                  cmat: torch.Tensor, chunk: int = 128
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K4 on the current stream -> ``(y, final_state)``."""
+def ssd_passes_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                    cmat: torch.Tensor, chunk: int = 128,
+                    chunk_states_only: bool = False
+                    ) -> tuple[torch.Tensor, ...]:
+    """Launch K4's three passes on the current stream -> ``(y,
+    final_state, cum (b, nh, s), states (b, nh, s // chunk, dh, ds))``,
+    ``states`` holding the state entering each chunk.  With
+    ``chunk_states_only`` it stops after pass 1, so that ``states`` still
+    holds each chunk's own contribution dS (pass 2 rewrites it in place);
+    ``y`` and ``final_state`` are then uninitialized."""
     b, s, nh, dh = x.shape
     g, ds = bmat.shape[2], bmat.shape[3]
     if dh not in HEAD_DIMS:
@@ -49,17 +64,30 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     build.check_tensor(a, "a", (b, s, nh), f32)
     build.check_tensor(bmat, "bmat", (b, s, g, ds), f32)
     build.check_tensor(cmat, "cmat", (b, s, g, ds), f32)
-    if any(t.device != x.device for t in (a, bmat, cmat)):
+    dev = x.device
+    if a.device != dev or bmat.device != dev or cmat.device != dev:
         raise ValueError("x, a, bmat and cmat must be on one device")
+    if x.data_ptr() % ALIGN:
+        raise ValueError(f"x must be {ALIGN}-byte aligned (a fresh tensor "
+                         "or a .clone() is)")
     y = torch.empty_like(x)
-    s_fin = torch.empty((b, nh, dh, ds), dtype=f32, device=x.device)
+    s_fin = torch.empty((b, nh, dh, ds), dtype=f32, device=dev)
+    cum = torch.empty((b, nh, s), dtype=f32, device=dev)
+    states = torch.empty((b, nh, s // chunk, dh, ds), dtype=f32, device=dev)
     lib = build.library("ssd")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.k4_ssd_scan(
-            x.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-            y.data_ptr(), s_fin.data_ptr(), b, s, nh, g, dh, ds, chunk,
-            stream)
+    rc = build.launch(
+        lib.k4_ssd_scan, dev, x.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+        cmat.data_ptr(), y.data_ptr(), s_fin.data_ptr(), cum.data_ptr(),
+        states.data_ptr(), b, s, nh, g, dh, ds, chunk,
+        int(chunk_states_only))
     build.check(lib, "k4", rc)
     LAUNCHES.count += 1
+    return y, s_fin, cum, states
+
+
+def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                  cmat: torch.Tensor, chunk: int = 128
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K4 on the current stream -> ``(y, final_state)``."""
+    y, s_fin, _, _ = ssd_passes_cuda(x, a, bmat, cmat, chunk)
     return y, s_fin

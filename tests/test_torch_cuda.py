@@ -7,8 +7,9 @@ These need an NVIDIA GPU (a CUDA kernel has no CPU mode): they carry the
 
 This file imports neither JAX nor the reference package, so it runs where
 only the port is installed.  Tolerances are those of
-tests/test_torch_kernels.py (K1, K2) and tests/test_torch_lm_kernels.py
-(K3: 2e-5 in f32, 2e-2 in bf16; K4: atol 1e-4).
+tests/test_torch_kernels.py (K1: atol max(5e-6, 2e-6 gamma), rtol 1e-5;
+K2) and tests/test_torch_lm_kernels.py (K3: 2e-5 in f32, 2e-2 in bf16; K4
+and each of its passes: atol 1e-4).
 """
 import numpy as np
 import pytest
@@ -51,6 +52,45 @@ def test_k1_kernel_matches_plain(card, kind):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=6e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rbf", "sech2"])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 7])
+@pytest.mark.parametrize("n,m,p", [(97, 130, 3), (1, 1, 1), (70, 128, 66),
+                                   (129, 257, 1)])
+def test_k1_ragged_edges_and_widths(card, kind, d, n, m, p):
+    """Rows and columns that do not fill the 64 x 128 tile, every d the
+    kernel unrolls (1-5) and one it reads in place (7), and m allowing
+    float4 (128), float2 (130) or only scalar (1, 257) stores."""
+    rng = np.random.RandomState(n + m + p + d)
+    x = _t(rng.rand(n, d)).to(card)
+    sv = _t(rng.rand(p, m, d)).to(card)
+    gamma = _t(rng.rand(p) * 30.0 + 0.1).to(card)
+    got = rbf.kernel_matrix_cuda(x, sv, gamma, kind, v_scale=1.0)
+    want = rbf.kernel_matrix_plain(x, sv, gamma, kind, v_scale=1.0)
+    torch.cuda.synchronize()
+    atol = max(5e-6, 2e-6 * float(gamma.max()))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=atol, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k1_sech2_at_wide_rows_where_a_query_is_a_support_vector(card):
+    """d = 64, read in place: where a query equals a support vector every
+    factor is 1, so the value is 1, not the NaN of inf / inf that products
+    of 4^d would give."""
+    rng = np.random.RandomState(64)
+    sv = _t(rng.rand(2, 9, 64)).to(card)
+    x = torch.cat([sv[0, :4], _t(rng.rand(3, 64)).to(card)]).contiguous()
+    gamma = _t([0.5, 4.0]).to(card)
+    got = rbf.kernel_matrix_cuda(x, sv, gamma, "sech2", v_scale=1.0)
+    want = rbf.kernel_matrix_plain(x, sv, gamma, "sech2", v_scale=1.0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got[0, range(4), range(4)] == 1.0).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=max(5e-6, 2e-6 * 4.0), rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -213,6 +253,71 @@ def test_k4_kernel_matches_plain(card, s, chunk, dh, g, ds):
     np.testing.assert_allclose(y.cpu().numpy(), y_p.cpu().numpy(), atol=1e-4)
     np.testing.assert_allclose(s_fin.cpu().numpy(), s_p.cpu().numpy(),
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_scale", [0.3, 3.0])
+@pytest.mark.parametrize("dh", [16, 64])
+@pytest.mark.parametrize("g", [1, 2])
+def test_k4_sixteen_chunks(card, a_scale, dh, g):
+    """s = 2048 at the model's chunk of 128: 16 chunks whose states the
+    state pass carries, with a mild decay and a strong one (exp(cum)
+    underflows within a chunk)."""
+    rng = np.random.RandomState(int(a_scale * 10) + dh + g)
+    b, s, h, ds = 2, 2048, 4, 16
+    x = rng.randn(b, s, h, dh) * 0.3
+    a = -np.abs(rng.randn(b, s, h)) * a_scale
+    bm, cm = (rng.randn(b, s, g, ds) * 0.3 for _ in range(2))
+    x, a, bm, cm = (_t(t).to(card) for t in (x, a, bm, cm))
+    y, s_fin = ssd.ssd_scan_cuda(x, a, bm, cm, 128)
+    y_p, s_p = ref.ssd_scan(x, a, bm, cm, 128)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.cpu().numpy(), y_p.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(s_fin.cpu().numpy(), s_p.cpu().numpy(),
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,g,ds", [(64, 1, 16), (16, 2, 8), (64, 2, 5),
+                                     (16, 1, 24), (64, 1, 64)])
+def test_k4_passes_match_their_plain_twins(card, dh, g, ds):
+    """Each device pass against its plain twin on the kernel's own inputs
+    to it, at state widths the kernel pads (5, 24) and its widest (64)."""
+    x, a, bm, cm = _ssd(ds, 2, 512, 4, dh, g, ds, card)
+    _, _, cum1, ds1 = ssd.ssd_passes_cuda(x, a, bm, cm, 128,
+                                           chunk_states_only=True)
+    y, s_fin, cum, s_prev = ssd.ssd_passes_cuda(x, a, bm, cm, 128)
+    cum_p, ds_p = ref.ssd_chunk_states(x, a, bm, 128)
+    s_prev_p, s_fin_p = ref.ssd_state_pass(cum1, ds1, 128)
+    y_p = ref.ssd_chunk_scan(x, bm, cm, cum, s_prev, 128)
+    y_r, s_r = ref.ssd_scan(x, a, bm, cm, 128)
+    torch.cuda.synchronize()
+    for got, want in ((cum1, cum_p), (ds1, ds_p), (s_prev, s_prev_p),
+                      (s_fin, s_fin_p), (y, y_p), (y, y_r), (s_fin, s_r)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k4_three_device_launches_per_call(card):
+    """One ``ssd_scan_cuda`` call is ``ssd.DEVICE_LAUNCHES`` device kernels,
+    all named ``ssd_*`` (the trace's K4 group), and one counted launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, a, bm, cm = _ssd(3, 1, 256, 4, 64, 1, 16, card)
+    ssd.ssd_scan_cuda(x, a, bm, cm, 128)
+    torch.cuda.synchronize()
+    before = ssd.LAUNCHES.count
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ssd.ssd_scan_cuda(x, a, bm, cm, 128)
+        torch.cuda.synchronize()
+    names = sorted(e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    assert len(names) == ssd.DEVICE_LAUNCHES == 3, names
+    assert all("ssd_" in n for n in names), names
+    assert ssd.LAUNCHES.count == before + 1
 
 
 @pytest.mark.cuda

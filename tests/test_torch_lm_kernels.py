@@ -136,6 +136,37 @@ def test_ssd_sweep(s, chunk):
     np.testing.assert_allclose(_np(s_fin), _np(s_r), atol=1e-4)
 
 
+@pytest.mark.parametrize("a_scale", [0.3, 3.0])
+@pytest.mark.parametrize("s,chunk", [(128, 32), (256, 64), (256, 128)])
+def test_ssd_pass_twins_compose_to_the_scan(s, chunk, a_scale):
+    """The plain twins of the hand K4's three passes (chunk states, state
+    pass, chunk scan), composed, against the plain chunk-by-chunk K4 and the
+    reference's Pallas kernel, at the reference sweep's shapes, with the
+    sweep's decay and a strong one (exp(cum) underflows within a chunk)."""
+    b, h, dh, g, ds = 2, 4, 16, 2, 8
+    (xj, xt), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(
+        s + chunk + 1, b, s, h, dh, g, ds, a_scale=a_scale)
+    cum, dstates = ref.ssd_chunk_states(xt, at, bt, chunk)
+    assert cum.shape == (b, h, s) and dstates.shape == (b, h, s // chunk,
+                                                        dh, ds)
+    s_prev, s_fin = ref.ssd_state_pass(cum, dstates, chunk)
+    assert not bool(s_prev[:, :, 0].any())             # the zero state
+    y = ref.ssd_chunk_scan(xt, bt, ct, cum, s_prev, chunk)
+    y_c, s_c = ref.ssd_scan(xt, at, bt, ct, chunk)
+    np.testing.assert_allclose(_np(y), _np(y_c), atol=1e-4)
+    np.testing.assert_allclose(_np(s_fin), _np(s_c), atol=1e-4)
+    rep = h // g
+    xf = jnp.moveaxis(xj, 2, 1).reshape(b * h, s, dh)
+    af = jnp.moveaxis(aj, 2, 1).reshape(b * h, s)
+    bf = jnp.moveaxis(jnp.repeat(bj, rep, 2), 2, 1).reshape(b * h, s, ds)
+    cf = jnp.moveaxis(jnp.repeat(cj, rep, 2), 2, 1).reshape(b * h, s, ds)
+    y_p, s_p = r_ops.ssd_scan(xf, af, bf, cf, chunk=chunk, interpret=True)
+    y_p = jnp.moveaxis(y_p.reshape(b, h, s, dh), 1, 2)
+    np.testing.assert_allclose(_np(y), _np(y_p), atol=1e-4)
+    np.testing.assert_allclose(_np(s_fin), _np(s_p.reshape(b, h, dh, ds)),
+                               atol=1e-4)
+
+
 def test_ssd_oracle_matches_reference():
     (xj, xt), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(9, 1, 64, 4, 8, 2, 8)
     y, s_fin = ref.ssd(xt, at, bt, ct)
