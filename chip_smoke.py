@@ -25,6 +25,28 @@ Phases, in order; any failure exits nonzero before the result line:
    predict wall times (first call, then median / min / max).  The launch
    counters are zeroed just before and read just after; both kernels must
    have run.  Balance must meet the properties of tests/test_system.py.
+8. The kernel-assignment design space (run right after phase 3, on its
+   three fitted estimators): ``est.pareto`` sweeps all 2^3 assignments of
+   each dataset; the Algorithm-1 vertex's accuracy is the circuit
+   machine's; a deploy under an area budget strictly between the
+   all-linear and the Algorithm-1 areas returns a machine whose
+   ``hwcost.system_cost`` area is within it; ``save`` / ``load`` keep
+   ``assignment_``; the candidate bits equal a CPU machine's off ties and
+   the sweep's accuracies equal the CPU's recombination of the same bits,
+   bit for bit.  Then the two synthetic spaces of the reference (K = 5:
+   1024 assignments, n_val 400, d 4, M 6; K = 12: P = 66, n_val 400, d 3,
+   M 6, the portfolio search), card against CPU the same way.
+9. Monte-Carlo on balance: the robust sweep at 64 variants (variant 0 the
+   nominal candidate bits and scores, bit for bit), ``deploy("circuit",
+   yield_floor=0.9)`` (or the reference's error when no design meets it),
+   the dense engine at V = 64, the streamed engine (Sobol, chunk 2048, the
+   first 64 test rows) at V = 64 and V = 10^6 with its peak card memory
+   flat between them, streamed against its dense oracle and against the
+   dense engine within the Wilson bounds, and a ``torch.profiler`` split
+   of one streamed chunk.  The launch counters are zeroed before phase 8
+   and read after phase 9: this path reaches no hand kernel (its RBF
+   candidates are analog measured-curve banks), and the counts are
+   printed.
 4. A small input (the 150-row balance subsample) fit on the card and with
    the plain versions on the CPU: the same kernel picks, (gamma, C),
    support sets and scores.
@@ -497,6 +519,387 @@ def check_balance(row: dict) -> None:
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"balance properties failed: {failed}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 8 and 9: the design space and Monte-Carlo
+# ---------------------------------------------------------------------------
+
+
+class FixedBits:
+    """A bit machine holding given candidate bits (so a CPU design space
+    recombines exactly the bits the card produced)."""
+
+    def __init__(self, bits):
+        self.bits = bits
+
+    def pair_bits(self, x):
+        return self.bits
+
+
+def same_bits_off_ties(card_machine, cpu_machine, x) -> int:
+    """Candidate bits of the card and of the CPU equal wherever the card's
+    score is off a tie (|score| > 1e-5); returns how many bits differ."""
+    import numpy as np
+
+    scores, bits = card_machine.pair_scores(x), card_machine.pair_bits(x)
+    cpu_bits = cpu_machine.pair_bits(x)
+    clear = np.abs(scores) > 1e-5
+    if not np.array_equal(bits[clear], cpu_bits[clear]):
+        raise AssertionError("candidate bits: card != CPU off ties")
+    return int((bits != cpu_bits).sum())
+
+
+def cpu_sweep_of(bits, space, x, y, **kw):
+    """The CPU's sweep of the card's bits through the same cost table."""
+    from repro_torch.core import dse
+
+    return dse.DesignSpace(FixedBits(bits), space.cost_table,
+                           space.n_classes, device="cpu").sweep(x, y, **kw)
+
+
+def assert_same_sweep(name: str, sw, cpu_sw) -> None:
+    import numpy as np
+
+    if not (np.array_equal(sw.assignments, cpu_sw.assignments)
+            and np.array_equal(sw.accuracy, cpu_sw.accuracy)
+            and np.array_equal(sw.front, cpu_sw.front)):
+        raise AssertionError(f"{name}: card sweep != CPU sweep")
+
+
+def dse_dataset(name: str, est, dev) -> dict:
+    """Phase 8 on one fitted estimator."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import MixedKernelSVM, compile_candidates
+    from repro_torch.core import dse, hwcost
+    from repro_torch.data import datasets
+
+    ds = datasets.load(name)
+    x, y = ds.x_test, ds.y_test
+    times = []
+    for _ in range(2):                     # first call (lowering), warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw = est.pareto(x, y)
+        times.append(time.perf_counter() - t0)
+    if not sw.exhaustive or sw.assignments.shape != (8, 3):
+        raise AssertionError(f"{name}: not the exhaustive 2^3 sweep")
+    alg1 = dse.assignment_from_kernel_map(est.kernel_map_)
+    i = sw.find(alg1)
+    circuit_acc = est.deploy("circuit").accuracy(x, y)
+    if abs(sw.accuracy[i] - circuit_acc) > 1e-6:
+        raise AssertionError(f"{name}: Algorithm-1 vertex {sw.accuracy[i]} "
+                             f"!= circuit machine {circuit_acc}")
+    lin = sw.find(np.zeros(3, bool))
+    budget = None
+    if sw.area[i] > sw.area[lin]:
+        budget = float(sw.area[lin] + sw.area[i]) / 2
+        machine = est.deploy("circuit", area_budget=budget)
+        chosen = est._assignment_bank(est.assignment_)
+        area = hwcost.system_cost(chosen, hwcost.CostModel()).area_mm2
+        j = sw.find(dse.assignment_from_kernel_map(est.assignment_))
+        if area > budget or abs(machine.accuracy(x, y) - sw.accuracy[j])                 > 1e-6:
+            raise AssertionError(f"{name}: budgeted deploy area {area} > "
+                                 f"{budget} or accuracy off the sweep")
+        with tempfile.TemporaryDirectory() as tmp:
+            est.save(f"{tmp}/est")
+            again = MixedKernelSVM.load(f"{tmp}/est", device=dev)
+        if again.assignment_ != est.assignment_:
+            raise AssertionError(f"{name}: save/load lost assignment_")
+        budgeted = dict(budget_mm2=budget, kernel_map=est.assignment_,
+                        area_mm2=area, accuracy=float(sw.accuracy[j]))
+        est.assignment_ = None
+    else:
+        budgeted = "Algorithm 1 is the all-linear corner: no budget between"
+    space = est.design_space()
+    cpu_machine = compile_candidates(est._candidates(), est.n_classes_,
+                                     device="cpu")
+    flips = same_bits_off_ties(space.machine, cpu_machine, x)
+    assert_same_sweep(name, sw, cpu_sweep_of(space.machine.pair_bits(x),
+                                             space, x, y))
+    row = dict(dataset=name, sweep_s_first=times[0], sweep_s_warm=times[1],
+               sweep_elapsed_s=sw.elapsed_s,
+               assignments_per_s=sw.assignments_per_s,
+               front_size=int(len(sw.front)),
+               front=[sw.kernel_map(k) for k in sw.front],
+               alg1=dict(kernel_map=est.kernel_map_,
+                         accuracy=float(sw.accuracy[i]),
+                         area_mm2=float(sw.area[i]),
+                         power_mw=float(sw.power[i]),
+                         on_front=bool(i in set(sw.front.tolist())),
+                         domination_margin=sw.domination_margin(alg1)),
+               budgeted_deploy=budgeted, card_cpu_bits_differing=flips,
+               card_equals_cpu_sweep=True)
+    log("DSE", json.dumps(row))
+    return row
+
+
+def synthetic_space(k: int, n_val: int, d: int, m: int, dev, x_seed=None):
+    """The reference's synthetic candidates (tests/test_dse.py:241 for K =
+    5 with its own x / y draw; benchmarks/scale.py:325 for K = 12, x / y
+    from the candidates' generator), built in the port from the numpy
+    seed 0 around the port's default core."""
+    import numpy as np
+
+    from repro_torch.core import dse, hwcost, ovo, trainer
+    from repro_torch.core.analog import AnalogBinaryClassifier
+    from repro_torch.core.svm import SVMModel
+
+    rng = np.random.RandomState(0)
+    hw = trainer.default_hw(0)
+    gamma = float(trainer.hw_gamma_grid(hw)[3])
+    cands = []
+    for _ in ovo.class_pairs(k):
+        w = rng.randn(d)
+        lin = SVMModel(kind="linear", support_x=np.zeros((1, d)),
+                       support_y=np.ones(1), alpha=np.zeros(1),
+                       bias=float(-w.sum() / 2), gamma=1.0, c=1.0, w=w)
+        sv = rng.rand(m, d)
+        yv = np.where(rng.rand(m) > 0.5, 1.0, -1.0)
+        rbf = SVMModel(kind="hw", support_x=sv, support_y=yv,
+                       alpha=rng.rand(m) + 0.1, bias=float(rng.randn() * 0.1),
+                       gamma=gamma, c=1.0, kernel_fn=hw.kernel_response)
+        cands.append((ovo.DigitalLinearClassifier.deploy(lin),
+                      AnalogBinaryClassifier.deploy(rbf, hw)))
+    xr = rng if x_seed is None else np.random.RandomState(x_seed)
+    x = xr.rand(n_val, d).astype(np.float32)
+    y = xr.randint(0, k, n_val)
+    space = dse.DesignSpace.from_candidates(cands, k, hwcost.CostModel(),
+                                            device=dev)
+    return cands, space, x, y
+
+
+def dse_synthetic(dev) -> list:
+    import torch
+
+    from repro_torch.api import compile_candidates
+
+    rows = []
+    for k, d, x_seed in ((5, 4, 1), (12, 3, None)):
+        cands, space, x, y = synthetic_space(k, 400, d, 6, dev, x_seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw = space.sweep(x, y)
+        wall = time.perf_counter() - t0
+        if sw.exhaustive != (k == 5):
+            raise AssertionError(f"K={k}: wrong sweep mode")
+        flips = same_bits_off_ties(space.machine, compile_candidates(
+            cands, k, device="cpu"), x)
+        t0 = time.perf_counter()
+        cpu_sw = cpu_sweep_of(space.machine.pair_bits(x), space, x, y)
+        cpu_s = time.perf_counter() - t0
+        assert_same_sweep(f"K={k}", sw, cpu_sw)
+        row = dict(k=k, p=space.n_pairs, n_val=400, d=d, m=6,
+                   exhaustive=sw.exhaustive,
+                   evaluated_assignments=int(sw.assignments.shape[0]),
+                   front_size=int(len(sw.front)), sweep_s=wall,
+                   assignments_per_s=sw.assignments_per_s,
+                   cpu_recombination_s=cpu_s,
+                   card_cpu_bits_differing=flips,
+                   card_equals_cpu_sweep=True)
+        log("DSE synthetic", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def profile_split(stages: dict) -> dict:
+    """Device time of each stage (one traced call each, ``torch.profiler``
+    CUDA events), in ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in stages.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        out[name] = sum(us) / 1e3 if us else "not measured"
+    return out
+
+
+def stream_chunk_trace(sm, x, y, a, floor: float) -> dict:
+    """One streamed chunk in the steady state (the second chunk of a
+    stream, so the Sobol engine continues rather than being built): its
+    device time by stage and, from one trace of the whole chunk as
+    ``stream`` runs it (host Sobol draws included), the device's idle
+    share."""
+    import torch
+
+    from repro_torch.api import compiled
+    from repro_torch.core import mcstream
+
+    dev = sm.device
+    b = sm.mc_chunk
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(y.astype("int64"), device=dev)
+    a = torch.as_tensor(a.astype("int32"), device=dev)
+    v_idx = torch.arange(b, 2 * b, device=dev)
+    valid = torch.ones(b, device=dev)
+    sm._uniforms(0, b)
+    t0 = time.perf_counter()
+    u = sm._uniforms(b, b)
+    torch.cuda.synchronize()
+    host_draws_ms = (time.perf_counter() - t0) * 1e3
+    st = {}
+
+    def lower():
+        st["bv"], st["w"], st["lr"] = sm._chunk_banks(v_idx, u)
+
+    def score():
+        flat = compiled._all_scores_mc(
+            x, sm._linear_banks, sm._kernel_banks, st["bv"], sm._inv_perm,
+            b, False)
+        st["bits"] = compiled._split_candidates(flat, sm.n_pairs)[1]
+
+    def recombine():
+        st["acc"] = compiled._recombine_acc(st["bits"], a, y, sm._table,
+                                            sm._weights)
+
+    state = mcstream.init_stream(1, mcstream.hist_bins(x.shape[0]), dev)
+
+    def fold():
+        mcstream.update_stream(state, st["acc"], st["w"], valid, floor,
+                               log_ref=st["lr"])
+
+    lower(), score(), recombine(), fold()        # warm
+    split = profile_split({
+        "draws_and_variant_lowering": lower,
+        "hw_interpolation_and_rails": score,
+        "recombination": recombine, "accumulator_fold": fold})
+
+    def whole():
+        uu = sm._uniforms(2 * b, b)
+        acc, w, lr = sm._chunk_acc(x, v_idx, a, y, uu)
+        mcstream.update_stream(state, acc, w, valid, floor, log_ref=lr)
+
+    trace = device_breakdown(whole)
+    return dict(chunk=b, host_sobol_draws_ms=host_draws_ms,
+                device_ms_by_stage=split,
+                chunk_wall_ms=trace["wall_ms"],
+                chunk_device_busy_ms=trace.get("device_busy_ms"),
+                chunk_device_idle_share=trace.get("device_idle_share"))
+
+
+def monte_carlo_phase(est, dev) -> dict:
+    """Phase 9 on balance's fitted estimator."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dse, mcstream
+    from repro_torch.data import datasets
+
+    ds = datasets.load("balance")
+    x, y = ds.x_test, ds.y_test
+    floor = round(est.score(x, y, target="circuit") - 0.02, 6)
+    sweep_s = []
+    for _ in range(2):        # first call (lowering, first kernels), warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw = est.pareto(x, y, n_variants=64, key=0, accuracy_floor=floor)
+        sweep_s.append(time.perf_counter() - t0)
+    machine = est.monte_carlo_machine(64, 0)
+    nominal = est.design_space().machine
+    if not (np.array_equal(machine.pair_bits(x)[0], nominal.pair_bits(x))
+            and np.array_equal(machine.pair_scores(x)[0],
+                               nominal.pair_scores(x))):
+        raise AssertionError("variant 0 != the nominal candidate machine")
+    per_call = cuda_ms(lambda: machine.pair_bits(x), reps=10) / 1e3
+    lcb, _ = mcstream.wilson_bounds(sw.yield_, 64, 0.95)
+    try:
+        est.deploy("circuit", yield_floor=0.9)
+        j = sw.find(dse.assignment_from_kernel_map(est.assignment_))
+        if lcb[j] < 0.9:
+            raise AssertionError("yield deploy below its floor")
+        yield_deploy = dict(kernel_map=est.assignment_,
+                            yield_lcb=float(lcb[j]),
+                            area_mm2=float(sw.area[j]))
+    except ValueError as e:
+        if (lcb[sw.robust_front] >= 0.9).any() or \
+                "no robust-front point meets yield 95%-LCB >= 0.9" \
+                not in str(e):
+            raise
+        yield_deploy = f"raised as the reference does: {e}"
+    est.assignment_ = None
+    i = sw.find(dse.assignment_from_kernel_map(est.kernel_map_))
+    dense = est.monte_carlo(x, y, n_variants=64, key=0)
+
+    # The streamed engine on the first 64 test rows.
+    x64, y64 = x[:64], y[:64]
+    floor64 = round(est.score(x64, y64, target="circuit") - 0.02, 6)
+    a = dse.assignment_from_kernel_map(est.kernel_map_)[None, :]
+    sm = est.stream_machine(0, method="sobol", mc_chunk=2048)
+    bits64 = sm.pair_bits_dense(x64, np.arange(64))
+    acc64 = dse.assignment_accuracies_mc(bits64, a, y64, est.n_classes_,
+                                         device=dev)[:, 0]
+    runs = {}
+    for v in (64, 64, 1_000_000):      # the first V = 64 run warms up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = sm.stream(x64, y64, a, n_variants=v, accuracy_floor=floor64)
+        torch.cuda.synchronize()
+        runs[v] = dict(out=out, s=time.perf_counter() - t0,
+                       peak=torch.cuda.max_memory_allocated())
+    o64, o1m = runs[64]["out"], runs[1_000_000]["out"]
+    if not (abs(o64["mean"][0] - acc64.mean()) < 1e-4
+            and o64["worst"][0] == acc64.min()
+            and o64["yield"][0] == (acc64 >= floor64).mean()):
+        raise AssertionError("streamed V = 64 != its dense oracle")
+    dense64 = est.monte_carlo(x64, y64, n_variants=64, key=0)
+    d_lo, d_hi = mcstream.wilson_bounds(dense64.yield_at(floor64), 64)
+    for o in (o64, o1m):
+        if o["yield_lo"][0] > d_hi or o["yield_hi"][0] < d_lo:
+            raise AssertionError("streamed and dense yields disagree beyond "
+                                 "their Wilson bounds")
+    m_max = max(int(b.sv.shape[1]) for b in sm._kernel_banks)
+    n_pb = max(len(b.pair_idx) for b in sm._kernel_banks)
+    chunk_bytes = 4 * sm.mc_chunk * (sm.mismatch_dim + n_pb * 64 * m_max)
+    peak_gap = runs[1_000_000]["peak"] - runs[64]["peak"]
+    if abs(peak_gap) > chunk_bytes:
+        raise AssertionError(f"streamed peak memory not flat: "
+                             f"{runs[64]['peak']} -> "
+                             f"{runs[1_000_000]['peak']} bytes")
+    row = dict(
+        dataset="balance", n_variants=64, accuracy_floor=floor,
+        mc_sweep_s_first=sweep_s[0], mc_sweep_s_warm=sweep_s[1],
+        dense_forward_ms=per_call * 1e3,
+        dense_variants_per_s=64 / per_call,
+        variant0_bit_identical=True,
+        robust_front=[sw.kernel_map(k) for k in sw.robust_front],
+        alg1=dict(acc_mean=float(sw.acc_mean[i]),
+                  acc_std=float(sw.acc_std[i]),
+                  acc_worst=float(sw.acc_worst[i]),
+                  yield_frac=float(sw.yield_[i]), yield_lcb=float(lcb[i])),
+        yield_floor_0_9=yield_deploy,
+        dense_engine=dict(nominal=dense.nominal, mean=dense.mean,
+                          worst=dense.worst, yield_at_floor=dense.yield_at(
+                              floor)),
+        stream=dict(method="sobol", mc_chunk=2048, n_rows=64,
+                    accuracy_floor=floor64,
+                    mismatch_dim=sm.mismatch_dim,
+                    **{f"v{v}": dict(
+                        seconds=r["s"], variants_per_s=v / r["s"],
+                        peak_bytes=r["peak"], mean=float(r["out"]["mean"][0]),
+                        std=float(r["out"]["std"][0]),
+                        worst=float(r["out"]["worst"][0]),
+                        yield_frac=float(r["out"]["yield"][0]),
+                        yield_lo=float(r["out"]["yield_lo"][0]),
+                        yield_hi=float(r["out"]["yield_hi"][0]))
+                       for v, r in runs.items()},
+                    peak_gap_bytes=peak_gap, one_chunk_bytes=chunk_bytes,
+                    dense64_yield_wilson=[float(d_lo), float(d_hi)]),
+        chunk_trace=stream_chunk_trace(sm, x64, y64, a, floor64))
+    log("MC", json.dumps(row))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1009,6 +1412,14 @@ def main() -> int:
     if min(counts["kernel_matrix"], counts["solver"]) < 1:
         raise AssertionError(f"a kernel did not run on the main path: {counts}")
     check_balance(rows[0])
+
+    ops.reset_launches()
+    for name, est in fitted.items():
+        dse_dataset(name, est, dev)
+    dse_synthetic(dev)
+    monte_carlo_phase(fitted["balance"], dev)
+    log("launches on the design-space / Monte-Carlo path (it reaches no "
+        "hand kernel):", json.dumps(ops.launch_counts()))
 
     k1, k1_rows = check_k1(dev, fitted)
 

@@ -9,18 +9,43 @@
   ``predict``: linear pairs in one matmul, RBF/sech2 pairs through the
   kernel-matrix hand kernel, analog pairs through the calibrated
   measured-curve kernel, and the packed decision encoder.
+
+The kernel-assignment design space is exposed through
+:meth:`MixedKernelSVM.pareto` and budgeted ``deploy``, with the building
+blocks re-exported: :func:`compile_candidates` / :class:`CandidateMachine`
+(the ``(n, P, 2)`` pair-bit tensor) and :class:`DesignSpace` /
+:class:`SweepResult`.  Process variation rides the same lowering:
+:func:`compile_variants` / :class:`MonteCarloMachine` (``(V, n, P, 2)``,
+variant 0 nominal) and the flat-memory :func:`compile_mc_stream` /
+:class:`StreamingMCMachine`; :meth:`MixedKernelSVM.monte_carlo` returns a
+:class:`MonteCarloResult` or :class:`StreamingMCResult`.
 """
 from repro_torch.api.compiled import (
+    CandidateMachine,
     CompiledMachine,
+    MonteCarloMachine,
+    StreamingMCMachine,
+    compile_candidates,
     compile_machine,
+    compile_mc_stream,
+    compile_variants,
     machine_from_arrays,
 )
-from repro_torch.api.estimator import MixedKernelSVM, estimator_from_arrays
-from repro_torch.core.analog import CircuitParams
+from repro_torch.api.estimator import (
+    MixedKernelSVM,
+    MonteCarloResult,
+    StreamingMCResult,
+    estimator_from_arrays,
+)
+from repro_torch.core.analog import CircuitParams, VariantSet
+from repro_torch.core.dse import DesignSpace, SweepResult
 from repro_torch.core.trainer import PaddedPairs, PairResult, pad_pairs, train_pairs
 
 __all__ = [
-    "CircuitParams", "CompiledMachine", "MixedKernelSVM", "PaddedPairs",
-    "PairResult", "compile_machine", "estimator_from_arrays",
+    "CandidateMachine", "CircuitParams", "CompiledMachine", "DesignSpace",
+    "MixedKernelSVM", "MonteCarloMachine", "MonteCarloResult",
+    "PaddedPairs", "PairResult", "StreamingMCMachine", "StreamingMCResult",
+    "SweepResult", "VariantSet", "compile_candidates", "compile_machine",
+    "compile_mc_stream", "compile_variants", "estimator_from_arrays",
     "machine_from_arrays", "pad_pairs", "train_pairs",
 ]

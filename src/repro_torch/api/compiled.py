@@ -22,8 +22,23 @@ the calibrated measured-curve kernel (interpolation + product).
 The decision encoder is the packed truth table for P <= 12 pair bits and
 vote counting + argmax (lowest-index tiebreak) above.  Saves are the
 reference's npz + json format (version 1), read and written alike.  The
-DAG decision front and the candidate / Monte-Carlo machines wait for later
-slices.
+DAG decision front waits for a later slice.
+
+The same lowering serves the kernel-assignment design space
+(``repro_torch.core.dse``):
+
+* :class:`CandidateMachine` (:func:`compile_candidates`) lowers BOTH
+  candidates of every pair and returns the assignment-independent bit
+  tensor ``pair_bits(x) -> (n, P, 2)`` in one batched pass.
+* :class:`MonteCarloMachine` (:func:`compile_variants`) evaluates every
+  analog candidate under ``V`` sampled mismatch instances: ``(V, n, P,
+  2)``, variant 0 the nominal bank's own scores.
+* :class:`StreamingMCMachine` (:func:`compile_mc_stream`) draws, scores and
+  folds fixed-size chunks of variants into ``mcstream`` accumulators, so
+  its memory is flat from V = 64 to V = 10^6.
+
+These paths reach no hand kernel: their RBF candidates are analog 'hw'
+banks (plain-torch measured-curve interpolation).
 """
 from __future__ import annotations
 
@@ -34,9 +49,17 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import dse, mcstream, quant
 from repro_torch.core import kernels as kern
-from repro_torch.core import quant
-from repro_torch.core.analog import AnalogBinaryClassifier
+from repro_torch.core.analog import (
+    AnalogBinaryClassifier,
+    VariantSet,
+    counter_normals,
+    stream_key,
+    variant_dim,
+    variant_set_from_flat,
+    variant_transfer_params,
+)
 from repro_torch.core.ovo import (
     MAX_TABLE_BITS,
     DigitalLinearClassifier,
@@ -175,6 +198,16 @@ def _t(a, device, dtype=torch.float32) -> torch.Tensor:
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
+def _as_input(x, device, n_features: int) -> torch.Tensor:
+    """``x`` as ``(n, n_features)`` f32 on ``device``, or raise."""
+    x = torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                        device=device)
+    if x.ndim != 2 or (n_features and x.shape[1] != n_features):
+        raise ValueError(f"expected (n, {n_features}) inputs, got shape "
+                         f"{tuple(x.shape)}")
+    return x
+
+
 @dataclasses.dataclass
 class _LinearBank:
     input_bits: int
@@ -264,12 +297,21 @@ def _bank_cell(bank: _KernelBank, dv: torch.Tensor) -> torch.Tensor:
                               bank.right, bank.uniform_grid, bank.inv_step)
 
 
-def _pair_kernel(bank: _KernelBank, xv: torch.Tensor) -> torch.Tensor:
+def _pair_kernel(bank: _KernelBank, xv: torch.Tensor,
+                 vshift: Optional[torch.Tensor] = None,
+                 vgain: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(P, n, M)`` kernel matrices of every pair of the bank.
 
     'rbf' / 'sech2': one K1 launch (``v_scale=1.0``, feature-unit gamma).
     'hw': the measured-curve kernel, accumulated per dimension in (P, n, M)
     temporaries (the sequential multiply order of a product over d).
+
+    ``vshift`` / ``vgain (..., P, M, d)``, when given ('hw' only), evaluate
+    Monte-Carlo variants' per-cell perturbed transfers,
+    ``gain * curve(dv + mu - vshift)``, into ``(..., P, n, M)``.  A
+    zero-offset variant subtracts an exact 0 and multiplies by an exact 1
+    around the same interpolation, so its kernel values are the nominal
+    ones bit for bit.
     """
     if bank.kind == "hw":
         acc = None
@@ -277,9 +319,16 @@ def _pair_kernel(bank: _KernelBank, xv: torch.Tensor) -> torch.Tensor:
             dv = bank.scale[:, None, None] \
                 * (xv[None, :, k:k + 1] - bank.sv[:, None, :, k]) \
                 + bank.shift[:, None, None]
+            if vshift is not None:
+                dv = dv - vshift[..., :, None, :, k]
             k1 = _bank_cell(bank, dv)
+            if vgain is not None:
+                k1 = k1 * vgain[..., :, None, :, k]
             acc = k1 if acc is None else acc * k1
         return acc
+    if vshift is not None or vgain is not None:
+        raise TypeError(f"variant lanes require the 'hw' measured-curve "
+                        f"kind, got {bank.kind!r}")
     return ops.rbf_matrix(xv, bank.sv, bank.gamma, kind=bank.kind,
                           v_scale=1.0)
 
@@ -460,13 +509,7 @@ class CompiledMachine:
         return scores, bits, self._decider(bits)
 
     def _as_input(self, x) -> torch.Tensor:
-        x = torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,
-                            device=self.device)
-        if x.ndim != 2 or (self.n_features and x.shape[1] != self.n_features):
-            raise ValueError(
-                f"expected (n, {self.n_features}) inputs, got shape "
-                f"{tuple(x.shape)}")
-        return x
+        return _as_input(x, self.device, self.n_features)
 
     def _run(self, x):
         return self.forward(self._as_input(x))
@@ -631,3 +674,723 @@ def compile_machine(machine: MulticlassSVM | Sequence,
     linear_banks, kernel_banks = _build_banks(specs, dev)
     return CompiledMachine(n_classes, linear_banks, kernel_banks,
                            kernel_map=kernel_map, decider=decider, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Candidate machine: the assignment-independent per-pair bit tensor
+# ---------------------------------------------------------------------------
+
+
+def _split_candidates(flat: torch.Tensor, n_pairs: int):
+    """(..., 2P) lowering-order columns -> (scores, bits) (..., P, 2)."""
+    scores = torch.stack([flat[..., :n_pairs], flat[..., n_pairs:]], dim=-1)
+    return scores, (scores >= 0.0).to(torch.int32)
+
+
+class _PairMachine:
+    """The candidate bit API shared by the candidate / Monte-Carlo
+    machines (``forward`` returns ``(scores, bits)``)."""
+
+    def pair_scores(self, x: np.ndarray) -> np.ndarray:
+        """Raw candidate decision scores (pre-comparator)."""
+        x = _as_input(x, self.device, self.n_features)
+        return self.forward(x)[0].cpu().numpy()
+
+    def pair_bits(self, x: np.ndarray) -> np.ndarray:
+        """Candidate comparator bits in one device pass."""
+        return self.forward(_as_input(x, self.device, self.n_features)
+                            )[1].cpu().numpy()
+
+
+class CandidateMachine(_PairMachine):
+    """BOTH per-pair candidates lowered into one batched pass.
+
+    Pair ``p``'s linear-digital bit and RBF bit do not change when another
+    pair's assignment flips, so this machine lowers the two candidates of
+    every pair (``2P`` classifiers) into the banks of
+    :class:`CompiledMachine` and evaluates them at once:
+
+        ``pair_bits(x) -> (n, P, 2)`` int32
+        (``[..., 0]`` linear-digital candidate, ``[..., 1]`` RBF candidate)
+
+    Any assignment's machine output is then a bit-recombination.
+    """
+
+    def __init__(self, n_classes: int, linear_banks, kernel_banks,
+                 device=None):
+        self.device = resolve_device(device)
+        self.n_classes = int(n_classes)
+        self.n_pairs = len(class_pairs(self.n_classes))
+        self._linear_banks = linear_banks
+        self._kernel_banks = kernel_banks
+        self.n_features = _bank_feature_dim(linear_banks, kernel_banks)
+        # Candidate 0 of pair p is lowering column p, candidate 1 is P + p.
+        self._inv_perm = _t(_inverse_perm(linear_banks, kernel_banks,
+                                          2 * self.n_pairs), self.device,
+                            torch.int64)
+
+    def forward(self, x: torch.Tensor):
+        """x (n, d) f32 -> (scores (n, P, 2), bits (n, P, 2))."""
+        return _split_candidates(
+            _all_scores(x, self._linear_banks, self._kernel_banks,
+                        self._inv_perm), self.n_pairs)
+
+
+def _candidate_specs(candidates: Sequence, n_classes: int) -> list:
+    """Lowered specs of every pair's two candidates (pair p: linear at
+    column p, RBF at column P + p)."""
+    p = len(class_pairs(n_classes))
+    if len(candidates) != p:
+        raise ValueError(
+            f"{len(candidates)} candidate pairs for {n_classes} classes "
+            f"(expected {p})")
+    specs = []
+    for i, (lin_clf, rbf_clf) in enumerate(candidates):
+        specs.append(_lower_classifier(i, lin_clf))
+        specs.append(_lower_classifier(p + i, rbf_clf))
+    return specs
+
+
+def compile_candidates(candidates: Sequence, n_classes: int,
+                       device=None) -> CandidateMachine:
+    """Lower per-pair ``(linear_clf, rbf_clf)`` candidates in
+    ``class_pairs`` order to one :class:`CandidateMachine` on ``device``
+    (None: the card)."""
+    dev = resolve_device(device)
+    specs = _candidate_specs(candidates, n_classes)
+    linear_banks, kernel_banks = _build_banks(specs, dev)
+    return CandidateMachine(n_classes, linear_banks, kernel_banks, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo machine: the candidate bit tensor under process variation
+# ---------------------------------------------------------------------------
+
+
+def _seed_of(key) -> int:
+    """An integer seed, or the reference's raw key data ``[hi, lo]`` (so
+    ``[0, seed]``, the data of ``PRNGKey(seed)``), as one integer seed."""
+    if isinstance(key, (int, np.integer)):
+        return int(key)
+    kd = np.asarray(key, np.uint32).ravel()
+    if kd.size != 2:
+        raise ValueError(f"key must be an int seed or 2 words of key data, "
+                         f"got {kd.tolist()}")
+    return (int(kd[0]) << 32) | int(kd[1])
+
+
+def _key_data(key) -> np.ndarray:
+    """The seed as the reference's key data ``[hi, lo]`` (uint32)."""
+    seed = _seed_of(key) & ((1 << 64) - 1)
+    return np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+
+
+@dataclasses.dataclass
+class _VariantSpec:
+    """Variant tensors of ONE analog candidate (pre-padding).
+
+    ``shift`` / ``gain (V, m, d)`` perturb the per-cell transfers,
+    ``coef_pos`` / ``coef_neg (V, m)`` are the per-variant realised alpha
+    coefficients, ``offset (V,)`` the comparator offsets.
+    """
+
+    pair: int
+    shift: torch.Tensor
+    gain: torch.Tensor
+    coef_pos: torch.Tensor
+    coef_neg: torch.Tensor
+    offset: torch.Tensor
+
+
+def _lower_analog_variants(idx: int, clf: AnalogBinaryClassifier,
+                           variants: VariantSet, device) -> _VariantSpec:
+    """Reduce one analog classifier's mismatch draws to its variant lanes:
+    the alpha path is frozen per variant (desired alpha -> control voltage
+    -> mismatched realised alpha, ``(dva - shift) / slope`` on the measured
+    sweep), as the nominal lowering freezes it."""
+    f32 = dict(dtype=torch.float32, device=device)
+    v = VariantSet(*(torch.as_tensor(np.asarray(a) if not isinstance(
+        a, torch.Tensor) else a, **f32) for a in
+        (variants.gauss, variants.alpha, variants.comparator)))
+    t = variant_transfer_params(v, clf.hw.params)
+    dva = clf.hw.alpha_control_voltage(torch.as_tensor(clf.alpha_hw, **f32))
+    a = clf.hw.alpha_realized((dva[None, :] - t.alpha_shift)
+                              / t.alpha_slope)                   # (V, m)
+    pos = torch.as_tensor(clf.support_y > 0, device=device)
+    return _VariantSpec(pair=idx, shift=t.shift, gain=t.gain,
+                        coef_pos=a * pos, coef_neg=a * ~pos,
+                        offset=t.comp_offset)
+
+
+@dataclasses.dataclass
+class _BankVariants:
+    """Per-bank stacked variant tensors (padded to the bank max M).
+
+    Padded SV slots carry gain 0 AND coefficient 0, so they add an exact 0
+    to the rails for every variant.
+    """
+
+    shift: torch.Tensor     # (V, P, M, d)
+    gain: torch.Tensor      # (V, P, M, d)
+    coef_pos: torch.Tensor  # (V, P, M)
+    coef_neg: torch.Tensor  # (V, P, M)
+    offset: torch.Tensor    # (V, P)
+
+    @classmethod
+    def build(cls, vspecs: list[_VariantSpec], m_max: int) -> "_BankVariants":
+        def pad(a: torch.Tensor) -> torch.Tensor:
+            out = a.new_zeros(a.shape[:1] + (m_max,) + a.shape[2:])
+            out[:, : a.shape[1]] = a
+            return out
+
+        def stack(name):
+            return torch.stack([pad(getattr(s, name)) for s in vspecs], 1)
+
+        return cls(shift=stack("shift"), gain=stack("gain"),
+                   coef_pos=stack("coef_pos"), coef_neg=stack("coef_neg"),
+                   offset=torch.stack([s.offset for s in vspecs], 1))
+
+    @property
+    def n_variants(self) -> int:
+        return int(self.shift.shape[0])
+
+
+def _bank_scores_mc(bank: _KernelBank, bv: _BankVariants, xv: torch.Tensor,
+                    include_nominal: bool) -> torch.Tensor:
+    """(V, n, P) decision scores of one analog bank under variation.
+
+    With ``include_nominal``, variant 0 does not go through the perturbed
+    lanes: it IS the nominal ``_bank_scores`` computation, put in front of
+    the ``V - 1`` sampled lanes, so its scores equal the nominal ones
+    whatever the batched contraction's summation order.
+    """
+    if bank.kind != "hw":
+        raise TypeError(f"variant lanes require the 'hw' measured-curve "
+                        f"kind, got {bank.kind!r}")
+    lo = 1 if include_nominal else 0
+    k = _pair_kernel(bank, xv, bv.shift[lo:], bv.gain[lo:])  # (V', P, n, M)
+    coef = torch.stack([bv.coef_pos[lo:], bv.coef_neg[lo:]], dim=-1)
+    rails = torch.matmul(k, coef)                             # (V', P, n, 2)
+    var = ((rails[..., 0] + bank.bias_pos[:, None])
+           - (rails[..., 1] + bank.bias_neg[:, None])
+           + bv.offset[lo:][..., None]).transpose(-1, -2)     # (V', n, P)
+    if not include_nominal:
+        return var
+    return torch.cat([_bank_scores(bank, xv)[None], var], dim=0)
+
+
+def _all_scores_mc(x: torch.Tensor, linear_banks, kernel_banks,
+                   bank_variants, inv_perm: torch.Tensor, n_variants: int,
+                   include_nominal: bool) -> torch.Tensor:
+    """x (n, d) f32 -> scores (V, n, C) in lowering (pair-index) order.
+
+    Variation-free lanes (linear-digital, digital RBF) are evaluated once
+    and broadcast over the variant axis.
+    """
+    xq_cache: dict[int, torch.Tensor] = {}
+
+    def xq(bits: int) -> torch.Tensor:
+        if bits not in xq_cache:
+            xq_cache[bits] = x if bits == 0 else quant.quantize_unit(x, bits)
+        return xq_cache[bits]
+
+    cols = []
+    for bank in linear_banks:
+        c = xq(bank.input_bits) @ bank.w.T + bank.b[None, :]
+        cols.append(c[None].expand((n_variants,) + c.shape))
+    for bank, bv in zip(kernel_banks, bank_variants):
+        if bv is None:
+            c = _bank_scores(bank, xq(bank.input_bits))
+            cols.append(c[None].expand((n_variants,) + c.shape))
+        else:
+            cols.append(_bank_scores_mc(bank, bv, xq(bank.input_bits),
+                                        include_nominal))
+    return torch.cat(cols, dim=2)[:, :, inv_perm]
+
+
+class MonteCarloMachine(_PairMachine):
+    """BOTH candidates of every pair under ``V`` mismatch instances:
+
+        ``pair_bits(x) -> (V, n, P, 2)`` int32
+
+    (candidate axis as in :class:`CandidateMachine`, variant axis leading).
+    Digital lanes are variation-free and broadcast.  With
+    ``include_nominal`` variant 0 is the zero-offset instance, computed by
+    the nominal bank path, so its slice equals the ``CandidateMachine``'s
+    scores and bits exactly.
+    """
+
+    def __init__(self, n_classes: int, linear_banks, kernel_banks,
+                 bank_variants, n_variants: int, include_nominal: bool,
+                 sigma_scale: float, key_data: Optional[np.ndarray] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.n_classes = int(n_classes)
+        self.n_pairs = len(class_pairs(self.n_classes))
+        self.n_variants = int(n_variants)
+        self.include_nominal = bool(include_nominal)
+        self.sigma_scale = float(sigma_scale)
+        self.key_data = None if key_data is None else np.asarray(key_data)
+        self._linear_banks = linear_banks
+        self._kernel_banks = kernel_banks
+        self._bank_variants = bank_variants
+        self.n_features = _bank_feature_dim(linear_banks, kernel_banks)
+        self._inv_perm = _t(_inverse_perm(linear_banks, kernel_banks,
+                                          2 * self.n_pairs), self.device,
+                            torch.int64)
+
+    def forward(self, x: torch.Tensor):
+        """x (n, d) f32 -> (scores (V, n, P, 2), bits (V, n, P, 2))."""
+        return _split_candidates(_all_scores_mc(
+            x, self._linear_banks, self._kernel_banks, self._bank_variants,
+            self._inv_perm, self.n_variants, self.include_nominal),
+            self.n_pairs)
+
+
+def _variant_banks(specs: list, variant_of: dict, device):
+    """Group specs into banks; each analog bank gets its stacked variants
+    (``variant_of``: lowering column -> per-pair variant object)."""
+    linear_groups, kernel_groups = _group_specs(specs)
+    linear_banks = [_LinearBank.build(g, device) for g in linear_groups]
+    kernel_banks, per_bank = [], []
+    for g in kernel_groups:
+        bank = _KernelBank.build(g, device)
+        kernel_banks.append(bank)
+        in_group = [s.pair in variant_of for s in g]
+        if not any(in_group):
+            per_bank.append(None)
+            continue
+        if not all(in_group):  # cannot happen: 'hw' curves group apart
+            raise ValueError(
+                "bank mixes variant and variant-free lanes; grouping bug")
+        per_bank.append([variant_of[s.pair] for s in g])
+    return linear_banks, kernel_banks, per_bank
+
+
+def compile_variants(
+    candidates: Sequence,
+    n_classes: int,
+    key=0,
+    n_variants: int = 64,
+    include_nominal: bool = True,
+    sigma_scale: float = 1.0,
+    draws: Optional[Sequence] = None,
+    device=None,
+) -> MonteCarloMachine:
+    """Lower per-pair candidates + sampled process variation to ONE machine.
+
+    ``candidates`` as :func:`compile_candidates`.  ``key`` is an integer
+    seed (or the reference's key data ``[0, seed]``): pair ``i``'s analog
+    candidate draws its own stream, ``stream_key(seed, i)``.  ``draws``
+    gives the mismatch explicitly instead: one ``VariantSet`` per pair
+    (``None`` for non-analog candidates), ``n_variants`` rows each, row 0
+    the zero instance when ``include_nominal`` — e.g. the reference's own
+    draws (the machine then records no key data).  Non-analog RBF
+    candidates are variation-free broadcast lanes.
+    """
+    dev = resolve_device(device)
+    specs = _candidate_specs(candidates, n_classes)
+    p = len(candidates)
+    seed = _seed_of(key)
+    vspecs: dict[int, _VariantSpec] = {}
+    for i, (_, rbf_clf) in enumerate(candidates):
+        if not isinstance(rbf_clf, AnalogBinaryClassifier):
+            continue
+        if draws is not None:
+            variants = draws[i]
+            if int(np.shape(variants.gauss)[0]) != n_variants:
+                raise ValueError(f"pair {i}: draws hold "
+                                 f"{np.shape(variants.gauss)[0]} variants, "
+                                 f"expected {n_variants}")
+        else:
+            variants = rbf_clf.sample_variants(
+                stream_key(seed, i), n_variants,
+                include_nominal=include_nominal, sigma_scale=sigma_scale,
+                device=dev)
+        vspecs[p + i] = _lower_analog_variants(p + i, rbf_clf, variants, dev)
+    linear_banks, kernel_banks, per_bank = _variant_banks(specs, vspecs, dev)
+    bank_variants = [
+        None if vs is None else _BankVariants.build(
+            vs, int(bank.sv.shape[1]))
+        for bank, vs in zip(kernel_banks, per_bank)]
+    return MonteCarloMachine(
+        n_classes, linear_banks, kernel_banks, bank_variants,
+        n_variants=n_variants, include_nominal=include_nominal,
+        sigma_scale=sigma_scale,
+        key_data=None if draws is not None else _key_data(key), device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Streaming Monte-Carlo machine: flat-memory variant chunks
+# ---------------------------------------------------------------------------
+
+#: Default variant chunk of the streaming engine: larger chunks amortize
+#: launch overhead, smaller ones shrink the peak temporaries.
+MC_STREAM_CHUNK = 256
+
+#: Assignment-axis chunk of the streamed recombination (bounds the
+#: ``(B, n, CHUNK)`` codes tensor).
+_RECOMBINE_CHUNK = 512
+
+STREAM_METHODS = ("iid", "sobol", "stratified", "is")
+
+
+@dataclasses.dataclass
+class _StreamBankConst:
+    """Per-analog-bank constants for drawing + lowering a variant chunk on
+    the bank's padded ``(Pb, M)`` slot grid: the pairs' draw keys, the
+    frozen alpha control voltages, rail / validity masks (padded slots have
+    both rail masks 0, so their coefficients are exact zeros) and the
+    pairs' measured alpha sweeps.  ``u_offset`` / ``u_width`` locate the
+    bank in the flat QMC block (padded dims); ``true_dim`` is its unpadded
+    mismatch dimension (the D of the importance-sampling log-weights).
+    """
+
+    pair_keys: torch.Tensor   # (Pb,) int64 draw keys
+    dva: torch.Tensor         # (Pb, M) alpha control voltages, 0 on pads
+    pos_mask: torch.Tensor    # (Pb, M) f32: valid slot on the + rail
+    neg_mask: torch.Tensor    # (Pb, M) f32: valid slot on the - rail
+    slot_valid: torch.Tensor  # (Pb, M) f32: any valid slot
+    alpha_grid: torch.Tensor  # (Pb, Ga) ascending measured alpha abscissa
+    alpha_curve: torch.Tensor  # (Pb, Ga) measured alpha multiplier
+    alpha_left: list          # (Pb,) clamp below the sweep
+    alpha_right: list         # (Pb,) clamp above the sweep
+    params: object = None     # shared CircuitParams
+    u_offset: int = 0
+    u_width: int = 0
+    true_dim: int = 0
+
+
+def _recombine_acc(bits4, assignments, y, table, weights,
+                   s_chunk: int = _RECOMBINE_CHUNK) -> torch.Tensor:
+    """Streamed recombination: ``bits4 (B, n, P, 2) -> acc (B, S)`` f32
+    through the packed encoder table, the assignment axis in chunks of
+    ``s_chunk`` (codes tensor bounded at ``(B, n, s_chunk)``)."""
+    return torch.cat([dse._encoder_accuracy(bits4, assignments[lo:
+                                                               lo + s_chunk],
+                                            y, table, weights)
+                      for lo in range(0, assignments.shape[0], s_chunk)],
+                     dim=1)
+
+
+class StreamingMCMachine:
+    """Tail-yield Monte-Carlo at sign-off scale: never more than ONE chunk
+    of ``mc_chunk`` variants on the device.
+
+    1. **Generate**: variant ``v``'s mismatch comes from the counter-based
+       draws of ``(pair key, v)`` (``method='iid'`` / ``'is'``) or from row
+       ``v`` of a scrambled-Sobol / Latin-hypercube point set (``'sobol'``
+       / ``'stratified'``, host scipy, inverse-CDF on the device): a pure
+       function of the global index, never of the chunking.
+    2. **Score**: the chunk's banks run through ``_all_scores_mc`` (digital
+       lanes broadcast), then the packed-encoder recombination (or, past
+       ``MAX_TABLE_BITS``, the pair-chunked votes) scores every assignment.
+    3. **Fold**: the ``(B, S)`` chunk accuracies collapse into the
+       :class:`~repro_torch.core.mcstream.StreamStats` accumulators.
+
+    The step's shapes depend on ``mc_chunk`` and the assignment matrix,
+    never on V, so peak memory is flat from V = 64 to V = 10^6.  With
+    ``method='is'`` draws are widened by ``is_scale`` and carry
+    self-normalized importance weights.  ``stream(mesh=...)`` (sharding the
+    chunk over several cards) waits for queue A9 (``launch/mesh.py``).
+    """
+
+    def __init__(self, n_classes: int, linear_banks, kernel_banks,
+                 stream_consts, method: str, mc_chunk: int,
+                 sigma_scale: float, is_scale: float,
+                 key_data: Optional[np.ndarray] = None, device=None):
+        self.device = resolve_device(device)
+        self.n_classes = int(n_classes)
+        self.n_pairs = len(class_pairs(self.n_classes))
+        if method not in STREAM_METHODS:
+            raise ValueError(
+                f"unknown sampling method {method!r}; one of "
+                f"{STREAM_METHODS}")
+        if mc_chunk < 1:
+            raise ValueError(f"mc_chunk must be >= 1, got {mc_chunk}")
+        self.method = method
+        self.mc_chunk = int(mc_chunk)
+        self.sigma_scale = float(sigma_scale)
+        self.is_scale = float(is_scale)
+        self.key_data = None if key_data is None else np.asarray(key_data)
+        self._linear_banks = linear_banks
+        self._kernel_banks = kernel_banks
+        self._stream_consts = stream_consts   # aligned with kernel_banks
+        self.n_features = _bank_feature_dim(linear_banks, kernel_banks)
+        self._inv_perm = _t(_inverse_perm(linear_banks, kernel_banks,
+                                          2 * self.n_pairs), self.device,
+                            torch.int64)
+        if self.n_pairs <= MAX_TABLE_BITS:
+            self._table, self._weights = dse._encoder_consts(
+                self.n_classes, self.n_pairs, self.device)
+        else:
+            self._vote_a, self._vote_b = dse._vote_matrices(
+                self.n_classes, self.device)
+            self._table = None
+        #: Flat mismatch dims over the padded slot grids (the QMC block
+        #: width) and over the true circuits (the IS log-weight D).
+        self.mismatch_dim = sum(
+            c.u_width for c in stream_consts if c is not None)
+        self.true_dim = sum(
+            c.true_dim for c in stream_consts if c is not None)
+        self._sampler = None
+        if method in ("sobol", "stratified"):
+            self._sampler = mcstream.QMCSampler(
+                method, self.mismatch_dim, self.key_data)
+
+    # -- chunk generation -----------------------------------------------------
+
+    def _bank_chunk(self, bc: _StreamBankConst, bank: _KernelBank,
+                    v_idx: torch.Tensor, u: torch.Tensor):
+        """Lower ONE analog bank's variant chunk: draws -> _BankVariants,
+        plus the masked squared norm of the unscaled standard-normal draws
+        ``(B,)`` (what importance-sampling log-weights integrate)."""
+        m_max = int(bc.dva.shape[1])
+        d = int(bank.sv.shape[2])
+        n_pb = int(bc.pair_keys.shape[0])
+        if self.method in ("iid", "is"):
+            z = counter_normals(bc.pair_keys, v_idx, variant_dim(m_max, d))
+        else:
+            ub = u[:, bc.u_offset: bc.u_offset + bc.u_width]
+            z = mcstream.uniform_to_normal(ub).reshape(
+                v_idx.shape[0], n_pb, variant_dim(m_max, d))
+        raw = variant_set_from_flat(z, m_max, d, 1.0)
+        gz, az, cz = raw.gauss, raw.alpha, raw.comparator
+        sumsq = (
+            torch.sum(gz * gz * bc.slot_valid[None, :, :, None, None],
+                      dim=(1, 2, 3, 4))
+            + torch.sum(az * az * bc.slot_valid[None, :, :, None],
+                        dim=(1, 2, 3))
+            + torch.sum(cz * cz, dim=1))
+        s = float(np.float32(self.sigma_scale * (
+            self.is_scale if self.method == "is" else 1.0)))
+        t = variant_transfer_params(
+            VariantSet(gauss=s * gz, alpha=s * az, comparator=s * cz),
+            bc.params)                                   # leading (B, Pb)
+        # Realised alpha: the frozen-alpha arithmetic of
+        # `_lower_analog_variants`, per pair against its measured sweep.
+        query = (bc.dva[None] - t.alpha_shift) / t.alpha_slope  # (B, Pb, M)
+        a = torch.stack([
+            kern.interp(query[:, j], bc.alpha_grid[j], bc.alpha_curve[j],
+                        left=bc.alpha_left[j], right=bc.alpha_right[j])
+            for j in range(n_pb)], dim=1)                # (B, Pb, M)
+        chunk = _BankVariants(
+            shift=t.shift, gain=t.gain,
+            coef_pos=a * bc.pos_mask[None], coef_neg=a * bc.neg_mask[None],
+            offset=t.comp_offset)
+        return chunk, sumsq
+
+    def _chunk_banks(self, v_idx: torch.Tensor, u: torch.Tensor):
+        """All banks' variant chunks + the chunk's sampling weights (B,)
+        and their log-scale."""
+        bank_variants = []
+        sumsq = torch.zeros(v_idx.shape[0], dtype=torch.float32,
+                            device=self.device)
+        for bank, bc in zip(self._kernel_banks, self._stream_consts):
+            if bc is None:
+                bank_variants.append(None)
+                continue
+            chunk, ss = self._bank_chunk(bc, bank, v_idx, u)
+            bank_variants.append(chunk)
+            sumsq = sumsq + ss
+        if self.method == "is":
+            s = self.is_scale
+            # Log-weight centered at its mean under the proposal (E[sumsq]
+            # = D), materialized relative to the chunk max so every weight
+            # sits in (0, 1]; the accumulators carry the scale (log_ref).
+            logw = (float(np.float32((s * s - 1.0) / 2.0))
+                    * (float(np.float32(self.true_dim)) - sumsq))
+            log_ref = torch.max(logw)
+            w = torch.exp(logw - log_ref)
+        else:
+            w = torch.ones(v_idx.shape[0], dtype=torch.float32,
+                           device=self.device)
+            log_ref = torch.zeros((), dtype=torch.float32, device=self.device)
+        return bank_variants, w, log_ref
+
+    def _chunk_bits(self, x, v_idx, u):
+        """One chunk's bits ``(B, n, P, 2)``, weights and their log-scale."""
+        bank_variants, w, log_ref = self._chunk_banks(v_idx, u)
+        flat = _all_scores_mc(x, self._linear_banks, self._kernel_banks,
+                              bank_variants, self._inv_perm,
+                              int(v_idx.shape[0]), False)   # (B, n, 2P)
+        return _split_candidates(flat, self.n_pairs)[1], w, log_ref
+
+    def _chunk_acc(self, x, v_idx, assignments, y, u):
+        """One chunk end to end: draws -> scores -> bits -> acc (B, S)."""
+        bits, w, log_ref = self._chunk_bits(x, v_idx, u)
+        if self._table is not None:
+            acc = _recombine_acc(bits, assignments, y, self._table,
+                                 self._weights)
+        else:
+            acc = dse._votes_accuracy_paired(bits, assignments, y,
+                                             self._vote_a, self._vote_b)
+        return acc, w, log_ref
+
+    # -- the host loop ----------------------------------------------------------
+
+    def _uniforms(self, start: int, b: int) -> torch.Tensor:
+        if self._sampler is None:
+            return torch.zeros((b, 0), dtype=torch.float32,
+                               device=self.device)
+        return torch.as_tensor(self._sampler.chunk(start, b),
+                               device=self.device)
+
+    def _prep(self, x, y, assignments):
+        x = _as_input(x, self.device, self.n_features)
+        y = torch.as_tensor(np.asarray(y).astype(np.int64),
+                            device=self.device)
+        a = np.atleast_2d(np.asarray(assignments)).astype(np.int32)
+        if a.shape[1] != self.n_pairs:
+            raise ValueError(
+                f"assignments have {a.shape[1]} pairs, machine has "
+                f"{self.n_pairs}")
+        return x, y, torch.as_tensor(a, device=self.device)
+
+    def stream(self, x, y, assignments, n_variants: int,
+               accuracy_floor: float, mesh=None,
+               confidence: float = mcstream.DEFAULT_CONFIDENCE,
+               ci: str = "wilson") -> dict:
+        """Stream ``n_variants`` mismatch instances chunk by chunk and
+        return ``mcstream.finalize``'s statistics dict (per-assignment mean
+        / std / worst / yield + binomial bounds, and the raw histogram
+        sketch under ``"hist"``)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "stream(mesh=...) shards the variant chunks over several "
+                "cards; it waits for the port of launch/mesh.py (ROADMAP "
+                "queue A9)")
+        if n_variants < 1:
+            raise ValueError(f"n_variants must be >= 1, got {n_variants}")
+        x, y, a = self._prep(x, y, assignments)
+        b = self.mc_chunk
+        state = mcstream.init_stream(int(a.shape[0]),
+                                     mcstream.hist_bins(int(x.shape[0])),
+                                     self.device)
+        for start in range(0, n_variants, b):
+            v_idx = torch.arange(start, start + b, device=self.device)
+            valid = (v_idx < n_variants).to(torch.float32)
+            acc, w, log_ref = self._chunk_acc(x, v_idx, a, y,
+                                              self._uniforms(start, b))
+            state = mcstream.update_stream(state, acc, w, valid,
+                                           float(accuracy_floor),
+                                           log_ref=log_ref)
+        out = mcstream.finalize(state, confidence, ci)
+        out["hist"] = state.hist.cpu().numpy().astype(np.float64)
+        out["n_variants"] = int(n_variants)
+        out["method"] = self.method
+        out["accuracy_floor"] = float(accuracy_floor)
+        return out
+
+    def _indexed(self, v_idx):
+        v_idx = np.asarray(v_idx, np.int64)
+        if self._sampler is not None and not np.array_equal(
+                v_idx, np.arange(v_idx[0], v_idx[0] + len(v_idx))):
+            raise ValueError(
+                "QMC methods need a contiguous v_idx range (the "
+                "low-discrepancy stream is indexed, not keyed)")
+        u = self._uniforms(int(v_idx[0]), len(v_idx))
+        return torch.as_tensor(v_idx, device=self.device), u
+
+    def pair_bits_dense(self, x, v_idx) -> np.ndarray:
+        """Dense oracle: the bit tensor ``(B, n, P, 2)`` of the global
+        variant indices ``v_idx``, the bits the streamed chunks fold away."""
+        v, u = self._indexed(v_idx)
+        x = _as_input(x, self.device, self.n_features)
+        return self._chunk_bits(x, v, u)[0].cpu().numpy()
+
+    def chunk_weights(self, v_idx) -> np.ndarray:
+        """Absolute (mean-centered) sampling weights of the given global
+        variants (1 unless ``method='is'``), the chunk's log-scale folded
+        back in on the host in f64."""
+        v, u = self._indexed(v_idx)
+        _, w, log_ref = self._chunk_banks(v, u)
+        return w.cpu().numpy().astype(np.float64) * np.exp(float(log_ref))
+
+
+def compile_mc_stream(
+    candidates: Sequence,
+    n_classes: int,
+    key=0,
+    method: str = "iid",
+    mc_chunk: int = MC_STREAM_CHUNK,
+    sigma_scale: float = 1.0,
+    is_scale: float = 2.0,
+    device=None,
+) -> StreamingMCMachine:
+    """Lower per-pair candidates to a flat-memory streaming MC machine.
+
+    ``candidates`` / ``n_classes`` / ``key`` as :func:`compile_variants`;
+    variant ``v`` of pair ``i`` draws from ``(stream_key(seed, i), v)``, so
+    the stream is chunk-size invariant and restartable.  ``method``:
+    ``'iid'`` normal draws, ``'sobol'`` scrambled Sobol' / ``'stratified'``
+    Latin hypercube over the reduced mismatch space (seeded from the key
+    data as the reference seeds them), or ``'is'`` importance sampling with
+    draws widened by ``is_scale``.  Streaming samples without the nominal
+    row.
+    """
+    dev = resolve_device(device)
+    specs = _candidate_specs(candidates, n_classes)
+    p = len(candidates)
+    seed = _seed_of(key)
+    analog = {p + i: (i, rbf) for i, (_, rbf) in enumerate(candidates)
+              if isinstance(rbf, AnalogBinaryClassifier)}
+    linear_banks, kernel_banks, per_bank = _variant_banks(specs, analog, dev)
+    stream_consts, u_offset = [], 0
+    for bank, members in zip(kernel_banks, per_bank):
+        if members is None:
+            stream_consts.append(None)
+            continue
+        bc = _stream_bank_const(members, seed, int(bank.sv.shape[1]),
+                                int(bank.sv.shape[2]), u_offset, dev)
+        u_offset += bc.u_width
+        stream_consts.append(bc)
+    return StreamingMCMachine(
+        n_classes, linear_banks, kernel_banks, stream_consts,
+        method=method, mc_chunk=mc_chunk, sigma_scale=sigma_scale,
+        is_scale=is_scale, key_data=_key_data(key), device=dev)
+
+
+def _stream_bank_const(members, seed: int, m_max: int, d: int,
+                       u_offset: int, device) -> _StreamBankConst:
+    """One bank's generation constants from its ``(pair row, classifier)``
+    members."""
+    n_pairs_bank = len(members)
+    dva = np.zeros((n_pairs_bank, m_max), np.float32)
+    pos = np.zeros((n_pairs_bank, m_max), np.float32)
+    neg = np.zeros((n_pairs_bank, m_max), np.float32)
+    valid = np.zeros((n_pairs_bank, m_max), np.float32)
+    grids, curves, keys = [], [], []
+    params = None
+    true_dim = 0
+    for j, (row, clf) in enumerate(members):
+        if params is None:
+            params = clf.hw.params
+        elif clf.hw.params != params:
+            raise ValueError(
+                "analog candidates in one bank carry different "
+                "CircuitParams; the streaming generator assumes one "
+                "process corner per bank")
+        m = clf.n_support
+        dva[j, :m] = clf.hw.alpha_control_voltage(torch.as_tensor(
+            clf.alpha_hw, dtype=torch.float32)).numpy()
+        pos[j, :m] = (clf.support_y > 0).astype(np.float32)
+        neg[j, :m] = (clf.support_y <= 0).astype(np.float32)
+        valid[j, :m] = 1.0
+        order = np.argsort(clf.hw.dva_grid, kind="stable")
+        grids.append(np.asarray(clf.hw.dva_grid, np.float32)[order])
+        curves.append(np.asarray(clf.hw.alpha_curve, np.float32)[order])
+        keys.append(stream_key(seed, row))
+        true_dim += variant_dim(m, clf.n_features)
+    if len({g.shape[0] for g in grids}) != 1:
+        raise ValueError("analog alpha sweeps in one bank differ in length")
+    return _StreamBankConst(
+        pair_keys=torch.as_tensor(keys, dtype=torch.int64, device=device),
+        dva=_t(dva, device), pos_mask=_t(pos, device),
+        neg_mask=_t(neg, device), slot_valid=_t(valid, device),
+        alpha_grid=_t(np.stack(grids), device),
+        alpha_curve=_t(np.stack(curves), device),
+        alpha_left=[float(c[0]) for c in curves],
+        alpha_right=[float(c[-1]) for c in curves],
+        params=params, u_offset=u_offset,
+        u_width=n_pairs_bank * variant_dim(m_max, d), true_dim=true_dim)

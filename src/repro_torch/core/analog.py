@@ -22,6 +22,17 @@ explicitly, and ``repro_torch.core.trainer.default_hw`` draws them from a
 seeded ``torch.Generator`` unless the caller passes them in.  The sweeps are
 host-side calibration, computed in f32 on the CPU like the reference's
 device arrays and kept as numpy.
+
+Monte-Carlo process variation (the variant half): ``VariantSet`` holds the
+standard-normal mismatch draws of V fabricated instances of one
+classifier, ``variant_transfer_params`` reduces them to the perturbations
+of the measured transfers, and the classifier evaluates them in
+``decision_mc``.  The reference draws with ``jax.random`` keys, which torch
+cannot reproduce; here every sampling function takes the draws explicitly
+(a ``VariantSet``) or draws them from an integer ``key`` with a
+counter-based generator (:func:`counter_normals`): variant ``v``'s draws
+are a pure function of ``(key, v)``, so a stream of variants is the same
+whatever its chunking, on either device.
 """
 from __future__ import annotations
 
@@ -127,6 +138,204 @@ def dc_sweep_alpha(p: CircuitParams, offsets=None, n_points: int = 257
 
 
 # --------------------------------------------------------------------------
+# Monte-Carlo process variation
+# --------------------------------------------------------------------------
+
+#: Raw mismatch draws per 1-D Gaussian cell (two pair vth offsets, mirror
+#: ratio error, V_DS modulation) and per alpha multiplier (vth offset,
+#: slope error) — the offset vectors the circuit surrogate consumes.
+N_GAUSS_OFFSETS = 4
+N_ALPHA_OFFSETS = 2
+
+_MASK64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+_MIX1 = 0xBF58476D1CE4E5B9
+_MIX2 = 0x94D049BB133111EB
+
+
+def _signed(u: int) -> int:
+    u &= _MASK64
+    return u - (1 << 64) if u >> 63 else u
+
+
+def _lsr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of an int64 tensor."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer on int64 tensors (products wrap mod 2^64)."""
+    x = x ^ _lsr(x, 30)
+    x = x * _signed(_MIX1)
+    x = x ^ _lsr(x, 27)
+    x = x * _signed(_MIX2)
+    return x ^ _lsr(x, 31)
+
+
+def _mix64_int(x: int) -> int:
+    x &= _MASK64
+    x = ((x ^ (x >> 30)) * _MIX1) & _MASK64
+    x = ((x ^ (x >> 27)) * _MIX2) & _MASK64
+    return x ^ (x >> 31)
+
+
+def stream_key(seed: int, pair: int = 0) -> int:
+    """The int64 draw key of ``pair``'s mismatch stream under ``seed``."""
+    return _signed(_mix64_int(_mix64_int(int(seed)) + (int(pair) + 1) * _GOLDEN))
+
+
+def counter_normals(key, v_idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """Standard-normal draws ``(B, *key.shape, dim)``, a pure function of
+    ``(key, v, j)`` for global variant ``v`` and coordinate ``j``.
+
+    ``key`` is an int or an int64 tensor of stream keys (one per pair);
+    ``v_idx (B,)`` holds the global variant indices.  Each draw hashes its
+    counter with splitmix64, keeps 23 bits as the odd lattice point
+    ``(2k + 1) / 2^24`` of (0, 1) (exact in f32) and maps it through the
+    normal quantile.
+    """
+    dev = v_idx.device
+    k = torch.as_tensor(key, dtype=torch.int64, device=dev)
+    v = v_idx.to(torch.int64).reshape((-1,) + (1,) * k.dim())
+    base = _mix64(k + v * _signed(_GOLDEN))                 # (B, *key)
+    j = torch.arange(1, int(dim) + 1, dtype=torch.int64, device=dev)
+    h = _mix64(base[..., None] + j * _signed(_MIX2))       # (B, *key, D)
+    u = (_lsr(h, 41) * 2 + 1).to(torch.float32) * (2.0 ** -24)
+    return torch.special.ndtri(u)
+
+
+@dataclasses.dataclass(frozen=True)
+class VariantSet:
+    """Standard-normal mismatch draws for ``V`` instances of one classifier.
+
+    Shapes: ``gauss (V, m, d, 4)`` — per SV x feature Gaussian cell,
+    ``alpha (V, m, 2)`` — per-SV alpha multiplier, ``comparator (V,)`` —
+    one comparator per instance.  Row 0 is the all-zero nominal instance
+    when sampled with ``include_nominal=True``.
+    """
+
+    gauss: torch.Tensor
+    alpha: torch.Tensor
+    comparator: torch.Tensor
+
+    @property
+    def n_variants(self) -> int:
+        return int(self.gauss.shape[0])
+
+    @property
+    def n_support(self) -> int:
+        return int(self.gauss.shape[1])
+
+    @property
+    def n_features(self) -> int:
+        return int(self.gauss.shape[2])
+
+
+def variant_dim(n_support: int, n_features: int) -> int:
+    """Flat mismatch dimension of ONE classifier circuit instance:
+    ``m*d`` Gaussian cells x 4 offsets + ``m`` alpha multipliers x 2 + 1
+    comparator offset."""
+    return (n_support * n_features * N_GAUSS_OFFSETS
+            + n_support * N_ALPHA_OFFSETS + 1)
+
+
+def variant_set_from_flat(z: torch.Tensor, n_support: int, n_features: int,
+                          sigma_scale: float = 1.0) -> VariantSet:
+    """Reshape flat standard-normal draws ``z (..., D)`` into a
+    :class:`VariantSet` with the same leading dims; the layout is
+    ``[gauss (m*d*4) | alpha (m*2) | comparator (1)]``."""
+    m, d = int(n_support), int(n_features)
+    ng = m * d * N_GAUSS_OFFSETS
+    na = m * N_ALPHA_OFFSETS
+    if z.shape[-1] != ng + na + 1:
+        raise ValueError(
+            f"flat mismatch block has {z.shape[-1]} dims, expected "
+            f"{ng + na + 1} for m={m}, d={d}")
+    lead = tuple(z.shape[:-1])
+    s = float(np.float32(sigma_scale))
+    return VariantSet(
+        gauss=s * z[..., :ng].reshape(lead + (m, d, N_GAUSS_OFFSETS)),
+        alpha=s * z[..., ng:ng + na].reshape(lead + (m, N_ALPHA_OFFSETS)),
+        comparator=s * z[..., ng + na])
+
+
+def sample_variant_chunk(key: int, v_idx: torch.Tensor, n_support: int,
+                         n_features: int,
+                         sigma_scale: float = 1.0) -> VariantSet:
+    """Mismatch for the global variant indices ``v_idx (B,)`` only: variant
+    ``v``'s offsets are a pure function of ``(key, v)``, never of the chunk
+    size or position."""
+    z = counter_normals(key, v_idx, variant_dim(n_support, n_features))
+    return variant_set_from_flat(z, n_support, n_features, sigma_scale)
+
+
+def sample_variant_offsets(key: int, n_variants: int, n_support: int,
+                           n_features: int, include_nominal: bool = True,
+                           sigma_scale: float = 1.0,
+                           device=None) -> VariantSet:
+    """Draw mismatch offsets for ``n_variants`` fabricated instances.
+
+    ``key`` is an integer draw key (``stream_key``); variants ``0 ..
+    n_draws - 1`` of its stream are drawn.  ``sigma_scale`` scales every
+    process sigma jointly.  With ``include_nominal`` (default) row 0 is the
+    zero-offset instance, so ``n_variants - 1`` random instances are drawn.
+    ``device`` (None: the card) holds the draws.
+    """
+    if n_variants < 1 + int(include_nominal):
+        raise ValueError(
+            f"n_variants={n_variants} too small (include_nominal="
+            f"{include_nominal})")
+    v = n_variants - 1 if include_nominal else n_variants
+    out = sample_variant_chunk(
+        key, torch.arange(v, device=resolve_device(device)), n_support,
+        n_features, sigma_scale)
+    if not include_nominal:
+        return out
+    return VariantSet(*(torch.cat([torch.zeros_like(a[:1]), a])
+                        for a in (out.gauss, out.alpha, out.comparator)))
+
+
+@dataclasses.dataclass(frozen=True)
+class VariantTransferParams:
+    """Per-cell perturbations of the measured transfers for ``V`` instances.
+
+    ``shift (V, m, d)`` bell center shift (V), ``gain (V, m, d)`` cell peak
+    gain, ``alpha_shift`` / ``alpha_slope (V, m)`` the alpha multiplier's
+    control-voltage offset and logistic slope scale, ``comp_offset (V,)``
+    the comparator offset in units of I_in.  All-zero draws reduce to shift
+    0, gain 1, slope 1 and the nominal comparator offset exactly.
+    """
+
+    shift: torch.Tensor
+    gain: torch.Tensor
+    alpha_shift: torch.Tensor
+    alpha_slope: torch.Tensor
+    comp_offset: torch.Tensor
+
+
+def variant_transfer_params(v: VariantSet, p: CircuitParams
+                            ) -> VariantTransferParams:
+    """Reduce raw mismatch draws to measured-transfer perturbations."""
+    nvt = p.n * p.v_t
+    g = v.gauss
+    shift = (0.5 * (g[..., 0] + g[..., 1])) * p.sigma_vth
+    diff = (0.5 * (g[..., 0] - g[..., 1])) * (p.sigma_vth / nvt)
+    peak = 4.0 * _pair_fraction(-diff) * (1.0 - _pair_fraction(diff))
+    gain = (peak
+            * (1.0 + g[..., 2] * p.mirror_err)
+            * (1.0 + g[..., 3] * p.lambda_ds))
+    alpha_shift = v.alpha[..., 0] * p.sigma_vth
+    alpha_slope = 1.0 + v.alpha[..., 1] * 0.02
+    # Nominal offset divided in f64 first so variant 0 carries the exact
+    # f32 cast of the number the nominal lowering stores.
+    comp_offset = (p.comparator_offset / p.i_bias
+                   + v.comparator * (p.comparator_sigma / p.i_bias))
+    return VariantTransferParams(
+        shift=shift, gain=gain, alpha_shift=alpha_shift,
+        alpha_slope=alpha_slope, comp_offset=comp_offset)
+
+
+# --------------------------------------------------------------------------
 # Fits (Sec. IV-A): ideal Gaussian (Eq. 7) and logistic (Eq. 9)
 # --------------------------------------------------------------------------
 
@@ -223,6 +432,29 @@ class AnalogRBFModel:
                       left=float(self.kernel_curve[0]),
                       right=float(self.kernel_curve[-1]))
 
+    def kernel_1d_variants(self, dv_volts: torch.Tensor, shift: torch.Tensor,
+                           gain: torch.Tensor) -> torch.Tensor:
+        """Per-cell measured transfer under mismatch:
+        ``gain * curve(dv + mu - shift)``, broadcasting ``dv`` against the
+        per-cell ``shift`` / ``gain``; zero offsets give ``kernel_1d``'s
+        arithmetic exactly."""
+        return gain * interp(dv_volts + self.mu - shift,
+                             _f32(self.dv_grid, dv_volts),
+                             _f32(self.kernel_curve, dv_volts),
+                             left=float(self.kernel_curve[0]),
+                             right=float(self.kernel_curve[-1]))
+
+    def kernel_response_variants(self, x: torch.Tensor, sv: torch.Tensor,
+                                 gamma_star, shift: torch.Tensor,
+                                 gain: torch.Tensor) -> torch.Tensor:
+        """Separable kernel of ``V`` mismatched instances: ``x (n, d)``,
+        ``sv (m, d)``, ``shift`` / ``gain (V, m, d)`` -> ``(V, n, m)``."""
+        s = self.input_scale(gamma_star)
+        dv = self.v_scale * s * (x[:, None, :] - sv[None, :, :])  # (n, m, d)
+        k = self.kernel_1d_variants(dv[None], shift[:, None],
+                                    gain[:, None])                # (V, n, m, d)
+        return torch.prod(k, dim=-1)
+
     def kernel_response(self, x: torch.Tensor, sv: torch.Tensor,
                         gamma_star) -> torch.Tensor:
         """Separable D-dim kernel (Eq. 6 + Eq. 8): x (..., n, d),
@@ -312,6 +544,57 @@ class AnalogBinaryClassifier:
         i_plus, i_minus = self.rail_currents(x, device)
         off = self.hw.params.comparator_offset / self.hw.params.i_bias
         return ((i_plus - i_minus + off) >= 0.0).to(torch.int32).cpu().numpy()
+
+    # -- Monte-Carlo variation ------------------------------------------------
+
+    def sample_variants(self, key: int, n_variants: int,
+                        include_nominal: bool = True,
+                        sigma_scale: float = 1.0,
+                        device=None) -> VariantSet:
+        """Mismatch for ``n_variants`` instances of THIS classifier's circuit
+        (its ``m x d`` Gaussian cells, ``m`` alpha multipliers and one
+        comparator), drawn from the integer ``key``."""
+        return sample_variant_offsets(
+            key, n_variants, self.n_support, self.n_features,
+            include_nominal=include_nominal, sigma_scale=sigma_scale,
+            device=device)
+
+    def decision_mc(self, x: np.ndarray, variants: VariantSet,
+                    device=None) -> torch.Tensor:
+        """Comparator input ``I+ - I- + offset`` per variant: ``(V, n)``.
+
+        Every instance evaluates its own perturbed Gaussian cells, alpha
+        multipliers and comparator; the rails are accumulated per variant
+        with the nominal ``(n, m) @ (m,)`` shapes, so the zero-offset row
+        reproduces :meth:`rail_currents` exactly.
+        """
+        dev = resolve_device(device)
+        f32 = dict(dtype=torch.float32, device=dev)
+        v = VariantSet(*(torch.as_tensor(a, **f32) for a in
+                         (variants.gauss, variants.alpha,
+                          variants.comparator)))
+        t = variant_transfer_params(v, self.hw.params)
+        k = self.hw.kernel_response_variants(
+            torch.as_tensor(np.asarray(x), **f32),
+            torch.as_tensor(self.support_x, **f32), self.gamma_star,
+            t.shift, t.gain)                                      # (V, n, m)
+        dva = self.hw.alpha_control_voltage(
+            torch.as_tensor(self.alpha_hw, **f32))                # (m,)
+        a = self.hw.alpha_realized(
+            (dva[None, :] - t.alpha_shift) / t.alpha_slope)       # (V, m)
+        cur = k * a[:, None, :]
+        pos = torch.as_tensor(self.support_y > 0, **f32)
+        neg = 1.0 - pos
+        bias_p, bias_n = max(self.bias_hw, 0.0), max(-self.bias_hw, 0.0)
+        rows = [(cur[i] @ pos + bias_p) - (cur[i] @ neg + bias_n)
+                for i in range(cur.shape[0])]
+        return torch.stack(rows) + t.comp_offset[:, None]
+
+    def predict_bits_mc(self, x: np.ndarray, variants: VariantSet,
+                        device=None) -> np.ndarray:
+        """Per-variant comparator bits ``(V, n)`` int32."""
+        return (self.decision_mc(x, variants, device) >= 0.0
+                ).to(torch.int32).cpu().numpy()
 
     @property
     def n_support(self) -> int:

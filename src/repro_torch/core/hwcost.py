@@ -14,9 +14,10 @@ Two halves, mirroring the paper's mixed-signal split:
   per subthreshold branch.
 
 Pure host arithmetic (numpy): the per-classifier primitive
-``classifier_cost`` and ``system_cost``, its walk over a deployed
-``MulticlassSVM``.  The vectorized design-space costing
-(``pair_cost_table`` / ``assignment_costs``) waits for the DSE slice.
+``classifier_cost``, ``system_cost``, its walk over a deployed
+``MulticlassSVM``, and the vectorized design-space costing:
+``pair_cost_table`` prices every per-pair candidate once and
+``assignment_costs`` prices an ``(S, P)`` assignment matrix in one pass.
 """
 from __future__ import annotations
 
@@ -270,6 +271,109 @@ def system_cost(svm: MulticlassSVM, cm: CostModel) -> SystemCost:
         area_analog_mm2=a_a, power_analog_mw=p_a,
         area_digital_mm2=a_d, power_digital_mw=p_d,
     )
+
+
+# ---------------------------------------------------------------------------
+# Vectorized assignment costing (the design-space cost path)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PairCostTable:
+    """Per-pair candidate costs, priced once for a whole design space.
+
+    Column 0 is the pair's linear-digital candidate, column 1 its
+    RBF-analog candidate (each candidate is priced by its actual domain).
+    All arrays are ``(P, 2)`` float64.  ``n_features`` is the candidate's
+    ADC feature demand: its feature count for digital candidates, 0 for
+    analog ones (which read the sensor rails directly).
+    """
+
+    area: np.ndarray          # (P, 2) per-candidate area mm^2
+    power: np.ndarray         # (P, 2) per-candidate power mW
+    n_features: np.ndarray    # (P, 2) ADC feature demand (0 for analog)
+    encoder_area: float
+    encoder_power: float
+    adc_area_per_feature: float
+    adc_power_per_feature: float
+
+    @property
+    def n_pairs(self) -> int:
+        return int(self.area.shape[0])
+
+
+def _n_classes_from_pairs(n_pairs: int) -> int:
+    """Invert P = K(K-1)/2 (raises if P is not a valid pair count)."""
+    k = int(round((1.0 + math.sqrt(1.0 + 8.0 * n_pairs)) / 2.0))
+    if k * (k - 1) // 2 != n_pairs:
+        raise ValueError(f"{n_pairs} is not K(K-1)/2 for any integer K")
+    return k
+
+
+def pair_cost_table(candidates, cm: CostModel,
+                    n_classes: int | None = None) -> PairCostTable:
+    """Price every per-pair candidate once.
+
+    ``candidates`` is a sequence of ``(linear_clf, rbf_clf)`` deployed
+    classifier pairs in ``class_pairs`` order.  The shared system terms
+    (decision encoder; ADC per digitized feature) are priced here too, so
+    ``assignment_costs`` is pure array arithmetic.
+    """
+    if n_classes is None:
+        n_classes = _n_classes_from_pairs(len(candidates))
+    p = len(candidates)
+    area = np.zeros((p, 2))
+    power = np.zeros((p, 2))
+    n_features = np.zeros((p, 2))
+    for i, pair_cands in enumerate(candidates):
+        for j, clf in enumerate(pair_cands):
+            a, pw, domain = classifier_cost(clf, cm)
+            area[i, j], power[i, j] = a, pw
+            if domain == "digital":
+                n_features[i, j] = clf.n_features
+    enc_a, enc_p = cm.digital(encoder_ge(n_classes))
+    adc_a, adc_p = cm.adc(1)
+    return PairCostTable(
+        area=area, power=power, n_features=n_features,
+        encoder_area=enc_a, encoder_power=enc_p,
+        adc_area_per_feature=adc_a, adc_power_per_feature=adc_p,
+    )
+
+
+def assignment_costs(pairs, assignments: np.ndarray,
+                     cm: CostModel | None = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """System cost of ``S`` candidate assignments in one numpy pass.
+
+    ``pairs`` is a :class:`PairCostTable` or a sequence of per-pair
+    ``(linear_clf, rbf_clf)`` candidates (then ``cm`` is required).
+    ``assignments`` is an ``(S, P)`` boolean matrix (True: pair ``p`` on
+    its RBF candidate).  Returns ``(area (S,), power (S,))`` in mm^2 / mW,
+    each equal (to f64 round-off) to ``system_cost`` on the object bank
+    assembled from the same candidates.
+    """
+    if not isinstance(pairs, PairCostTable):
+        if cm is None:
+            raise ValueError(
+                "assignment_costs needs a CostModel when given raw "
+                "candidate pairs (pass cm=...)")
+        pairs = pair_cost_table(pairs, cm)
+    t = pairs
+    a = np.atleast_2d(np.asarray(assignments, bool))
+    if a.shape[1] != t.n_pairs:
+        raise ValueError(
+            f"assignment matrix has {a.shape[1]} pairs, table has "
+            f"{t.n_pairs}")
+    sel = a.astype(np.float64)                       # (S, P): 1 -> rbf col
+    area = sel @ t.area[:, 1] + (1.0 - sel) @ t.area[:, 0]
+    power = sel @ t.power[:, 1] + (1.0 - sel) @ t.power[:, 0]
+    # ADC bank: sized by the widest digitized classifier actually selected
+    # (system_cost's max over digital classifiers; 0 features -> no ADC).
+    nf_sel = np.where(a, t.n_features[:, 1], t.n_features[:, 0])  # (S, P)
+    nf = nf_sel.max(axis=1) if t.n_pairs else np.zeros(a.shape[0])
+    area = area + t.encoder_area + nf * t.adc_area_per_feature
+    power = power + t.encoder_power + nf * t.adc_power_per_feature
+    return area, power
 
 
 # ---------------------------------------------------------------------------

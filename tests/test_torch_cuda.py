@@ -360,3 +360,136 @@ def test_reduced_hymba_prefill_card_matches_cpu(card):
                                rtol=1e-4)
     np.testing.assert_allclose(st_c["ssm"].cpu().numpy(), st_h["ssm"].numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+# -- the design space and Monte-Carlo paths on the card ---------------------------
+#
+# No hand kernel runs here (the analog candidates are measured-curve
+# banks); these hold the card to the CPU where the port promises bit
+# identity, and the streaming engine's memory to one chunk.
+
+
+def _tiny_candidates(k=3, m=6, d=3, seed=0):
+    """Per-pair (digital linear, analog) candidates around the port's
+    default core."""
+    from repro_torch.core import analog, ovo, svm, trainer
+
+    hw = trainer.default_hw(0)
+    gamma = float(trainer.hw_gamma_grid(hw)[3])
+    rng = np.random.RandomState(seed)
+    cands = []
+    for _ in ovo.class_pairs(k):
+        w = rng.randn(d)
+        lin = svm.SVMModel(kind="linear", support_x=np.zeros((1, d)),
+                           support_y=np.ones(1), alpha=np.zeros(1),
+                           bias=float(-w.sum() / 2), gamma=1.0, c=1.0, w=w)
+        rbf = svm.SVMModel(kind="hw", support_x=rng.rand(m, d),
+                           support_y=np.where(rng.rand(m) > 0.5, 1.0, -1.0),
+                           alpha=rng.rand(m) + 0.1,
+                           bias=float(rng.randn() * 0.1), gamma=gamma, c=1.0,
+                           kernel_fn=hw.kernel_response)
+        cands.append((ovo.DigitalLinearClassifier.deploy(lin),
+                      analog.AnalogBinaryClassifier.deploy(rbf, hw)))
+    return cands
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(3, 188), (5, 400), (12, 400)])
+def test_recombination_card_equals_cpu_bit_for_bit(card, k, n):
+    """Accuracies are integer counts: the card's recombination (encoder
+    table up to P = 12, votes at P = 66) equals the CPU's exactly, over
+    the variant axis too."""
+    from repro_torch.core import dse
+
+    rng = np.random.RandomState(k)
+    p = k * (k - 1) // 2
+    bits = rng.randint(0, 2, (n, p, 2)).astype(np.int32)
+    bits3 = rng.randint(0, 2, (4, n, p, 2)).astype(np.int32)
+    y = rng.randint(0, k, n)
+    a = dse.enumerate_assignments(p) if p <= 10 else rng.rand(300, p) < 0.5
+    for fn, b in ((dse.assignment_accuracies, bits),
+                  (dse.assignment_accuracies_mc, bits3)):
+        np.testing.assert_array_equal(fn(b, a, y, k, device=card),
+                                      fn(b, a, y, k, device="cpu"))
+    if p <= 12:
+        np.testing.assert_array_equal(
+            dse.assignment_accuracies(bits, a, y, k, max_table_bits=0,
+                                      device=card),
+            dse.assignment_accuracies(bits, a, y, k, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_votes_argmax_tie_on_card_is_lowest_index(card):
+    from repro_torch.core import dse
+
+    cyc = np.array([[1, 0, 1]], np.int32)       # every class one vote
+    bits = np.stack([cyc, 0 * cyc], axis=-1).repeat(4, axis=0)
+    a = np.array([[0, 0, 0], [1, 1, 1]], bool)
+    got = dse.assignment_accuracies(bits, a, np.array([0, 1, 2, 0]), 3,
+                                    max_table_bits=0, device=card)
+    np.testing.assert_array_equal(got, [0.5, 0.25])
+
+
+@pytest.mark.cuda
+def test_design_space_on_card_matches_cpu(card):
+    from repro_torch.core import dse, hwcost
+
+    cands = _tiny_candidates(k=5, d=4)
+    rng = np.random.RandomState(1)
+    x = rng.rand(400, 4).astype(np.float32)
+    y = rng.randint(0, 5, 400)
+    on_card = dse.DesignSpace.from_candidates(cands, 5, hwcost.CostModel(),
+                                              device=card)
+    host = dse.DesignSpace.from_candidates(cands, 5, hwcost.CostModel(),
+                                           device="cpu")
+    scores = on_card.machine.pair_scores(x)
+    clear = np.abs(scores) > 1e-5
+    bits = on_card.machine.pair_bits(x)
+    np.testing.assert_array_equal(bits[clear],
+                                  host.machine.pair_bits(x)[clear])
+    np.testing.assert_allclose(scores, host.machine.pair_scores(x),
+                               atol=1e-5, rtol=1e-5)
+    sw = on_card.sweep(x, y)
+    np.testing.assert_array_equal(
+        sw.accuracy, dse.assignment_accuracies(bits, sw.assignments, y, 5,
+                                               device="cpu"))
+
+
+@pytest.mark.cuda
+def test_zero_offset_variant_bit_identical_on_card(card):
+    from repro_torch.api import compiled
+
+    cands = _tiny_candidates()
+    x = np.random.RandomState(2).rand(64, 3).astype(np.float32)
+    mc = compiled.compile_variants(cands, 3, key=0, n_variants=32,
+                                   device=card)
+    nominal = compiled.compile_candidates(cands, 3, device=card)
+    np.testing.assert_array_equal(mc.pair_scores(x)[0],
+                                  nominal.pair_scores(x))
+    np.testing.assert_array_equal(mc.pair_bits(x)[0], nominal.pair_bits(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["iid", "sobol"])
+def test_streamed_peak_memory_is_flat_on_card(card, method):
+    """The peak card memory of a streamed run does not grow with V: a run
+    of 40 chunks stays within one chunk's buffers of a run of one."""
+    from repro_torch.api import compiled
+
+    cands = _tiny_candidates(m=12)
+    rng = np.random.RandomState(3)
+    x = rng.rand(64, 3).astype(np.float32)
+    y = rng.randint(0, 3, 64)
+    a = np.ones((1, 3), bool)
+    sm = compiled.compile_mc_stream(cands, 3, key=0, method=method,
+                                    mc_chunk=512, device=card)
+    peaks = {}
+    for v in (512, 512, 512 * 40):          # the first run warms up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = sm.stream(x, y, a, n_variants=v, accuracy_floor=0.5)
+        torch.cuda.synchronize()
+        peaks[v] = torch.cuda.max_memory_allocated()
+        assert out["count"] == float(v)
+    chunk_bytes = 4 * 512 * (sm.mismatch_dim + 3 * 64 * 12)
+    assert abs(peaks[512 * 40] - peaks[512]) <= chunk_bytes, peaks
