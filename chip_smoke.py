@@ -13,11 +13,18 @@ Phases, in order; any failure exits nonzero before the result line:
    error, kernel and plain times (CUDA events after warm-up) and the least
    time the card could take.  K2 runs in all four modes (linear, rbf,
    sech2, Gram input) on balance's Table II CV lanes and on har12-width
-   lanes (n = 1582, d = 5) before the main path; K1 runs after
-   it, on the kernel banks the main path deployed, and at har12's width
-   (1875 queries x 1582 rows of a padded training set, d = 5), with its
-   device time per launch (``torch.profiler``) and host time per call
-   beside the time per call back to back.
+   lanes (n = 1582, d = 5) before the main path, and after phase 10 on
+   the full har12 fit's own launches (the linear and rbf CV grids at 66
+   pairs x 1 or 7 gammas x 35 lanes, one gamma of the gated hw grid, the
+   rbf refit at the fit's picks): at 3 epochs to the plain tolerances, at
+   the fit's epochs to the solver's invariants with the f32 drift against
+   an f64 plain run printed, and one pair's lanes alone equal to the same
+   lanes in the full grid bit for bit; K1 runs after phase 10, on the kernel
+   banks the main path deployed (har12's ``rbf`` and ``rbf_float``
+   included), and at har12's width (1875 queries x 1582 rows of a padded
+   training set, d = 5), with its device time per launch
+   (``torch.profiler``) and host time per call beside the time per call
+   back to back.
 3. The main path, paper Algorithm 1, for balance, seeds and vertebral at
    the estimator's defaults: ``datasets.load`` -> ``fit`` -> ``deploy`` for
    all six targets -> ``predict`` -> ``score`` -> ``hwcost.system_cost``,
@@ -47,6 +54,26 @@ Phases, in order; any failure exits nonzero before the result line:
    and read after phase 9: this path reaches no hand kernel (its RBF
    candidates are analog measured-curve banks), and the counts are
    printed.
+10. The K >= 10 scale-out on har12 (K = 12, P = 66; run after phase 9):
+   ``MixedKernelSVM().fit`` on the full training split (4375 rows, subset
+   sizes 198..1582) at the estimator's defaults, with its wall time, K2's
+   launches (as the trainer's rule gives them: where the Gram-memory gate
+   trips, the hw family's CV grid is one launch per gamma, 2 + 2 + (7 +
+   1) = 12), peak card memory and the kernel map's RBF count; the same fit
+   with the gate off (one stacked hw launch), its wall and peak, and every
+   pick and coefficient equal to the gated fit's; the Table-II-style row (linear, rbf, circuit in
+   the default cost-model units); ``circuit`` and ``rbf`` deployed with
+   ``decider="votes"`` and ``decider="dag"`` on the 1875 test rows: DAG =
+   votes on every Condorcet sample off ties, the agreement, each predict's
+   median of 9 and queries/s, the card's DAG labels = a CPU machine's
+   loaded from the same save off ties, the save round trip with its
+   ``"decider": "dag"``, K1's launches in the ``rbf`` votes predict (>= 1)
+   and in the DAG predicts (0); the K = 12 closure on the fitted banks
+   (``pareto`` on 400 test rows, ``monte_carlo`` at 16 variants, the iid
+   stream at 64 variants in chunks of 16); and the size-sharded CV grid
+   (rbf, gammas (0.5, 2), Cs (1, 10), 30 epochs) with ``devices=[card] *
+   D`` for D in 1, 2, 4, 8, each equal to D = 1's within 1e-6, with its
+   wall (best of 3), padded and true work units and lane units/s.
 4. A small input (the 150-row balance subsample) fit on the card and with
    the plain versions on the CPU: the same kernel picks, (gamma, C),
    support sets and scores.
@@ -102,6 +129,19 @@ SERVE_ARGV = ["--arch", "hymba-1.5b", "--no-reduced", "--batch", "4",
               "--prompt-len", "2048", "--gen", "32", "--seed", "0"]
 
 TABLE2_DATASETS = ("balance", "seeds", "vertebral")
+
+#: Phase 10's size-sharded grid: the lane ladder of benchmarks/scale.py.
+LADDER_GAMMAS = (0.5, 2.0)
+LADDER_CS = (1.0, 10.0)
+LADDER_EPOCHS = 30
+LADDER_SHARDS = (1, 2, 4, 8)
+#: Epochs of the short run of K2 on the full har12 launches, held to the
+#: plain version at its tolerances alone: over the fit's 100 CV epochs the
+#: f32 drift between two summation orders exceeds them on some of the rbf
+#: grid's lanes (``check_k2_har12`` prints how far).
+HAR12_K2_SHORT_EPOCHS = 3
+#: har12 as phase 10 fits it: (train rows, features), test rows, classes.
+HAR12_SHAPE = ((4375, 5), 1875, 12)
 
 
 def log(*args) -> None:
@@ -360,10 +400,13 @@ def k1_row(name: str, kind: str, x, sv, gamma) -> dict:
 
 
 def check_k2(dev) -> tuple[dict, list]:
+    """K2 in all four modes on balance's Table II CV lanes at the
+    estimator's CV epochs, and on a cut of har12's lanes (its 2 largest
+    pairs, 2 lanes, 3 epochs); the full har12 fit's launches are held
+    after phase 10 (``check_k2_har12``)."""
     import torch
 
     from repro_torch.core import svm, trainer
-    from repro_torch.kernels import ref, solver
 
     rows, entry = [], None
     cv_epochs = max(60, 200 // 2)      # the estimator's default CV epochs
@@ -384,55 +427,175 @@ def check_k2(dev) -> tuple[dict, list]:
         if name == "har12":
             xs, ys = xh[top].contiguous(), yh[top].contiguous()
             cb, gs = ch[top][:, :2].contiguous(), gh[top][:, :1].contiguous()
+            n_true = torch.as_tensor(padded_h.n_true)[top.cpu()]
         else:
             xs, ys, cb = x, y, c_box
             gs = gam[:, :1].contiguous() if kind == "linear" else gam
+            n_true = padded.n_true
         kp = None
         if kind == "gram":
             kp = kp_hw if name == "balance" else svm.callable_grams(
                 hw_kernel, xs, kp_gammas[:, :1].expand(xs.shape[0], -1)
             ).contiguous()
-            run = lambda: solver.solve_lanes_gram_cuda(kp, ys, cb, epochs)
-            plain = lambda: ref.solve_lanes_gram(kp, ys, cb, epochs)
-        else:
-            run = lambda: solver.solve_lanes_cuda(xs, ys, cb, gs, kind,
-                                                  epochs)
-            plain = lambda: ref.solve_lanes(xs, ys, cb, gs, kind, epochs)
-        a, f = run()
-        a_p, f_p = plain()
-        torch.cuda.synchronize()
-        scale = cb.amax(-1).clamp(min=1.0)[:, None, :, None]   # per lane C
-        ok_a, err_a = within(a / scale, a_p / scale, 5e-4, 1e-3)
-        ok_f, err_f = within(f / scale, f_p / scale, 5e-3, 1e-3)
-        pad_ok = bool((a[cb[:, None].expand_as(a) == 0] == 0).all())
-        if not (ok_a and ok_f and pad_ok):
-            raise AssertionError(
-                f"K2 {kind} {name}: alpha err {err_a} f err {err_f} "
-                f"masked rows exact {pad_ok}")
-        ms = cuda_ms(run, reps=3, warmup=1)
-        plain_ms = cuda_ms(plain, reps=1, warmup=0)
-        p, n = ys.shape
-        g = kp.shape[1] if kind == "gram" else gs.shape[1]
-        lanes = p * g * cb.shape[1]
-        d = 0 if kind == "gram" else xs.shape[2]
-        n_bytes = 4 * (p * n * (d + 1) + cb.numel() + 2 * lanes * n
-                       + (kp.numel() if kind == "gram" else gs.numel()))
-        n_true = (torch.as_tensor(padded_h.n_true)[top.cpu()]
-                  if name == "har12" else padded.n_true)
-        b, by = bound_ms(n_bytes, k2_ops(cb, n_true, g, epochs, kind, d))
-        steps = (epochs + 1) * -(-n // 16)   # coordinate blocks + final pass
-        row = dict(name=name, kind=kind, shape=[p, g, cb.shape[1], n, d],
-                   epochs=epochs, serial_chain=epochs * n,
-                   us_per_block_step=ms * 1e3 / steps,
-                   max_abs_err=max(float((a - a_p).abs().max()),
-                                   float((f - f_p).abs().max())),
-                   max_rel_lane_err=max(err_a, err_f), ms=ms,
-                   plain_ms=plain_ms, bound_ms=b, bound_by=by)
+        row = k2_row(name, kind, xs, ys, cb, gs, kp, epochs, n_true)
         rows.append(row)
-        log("K2", json.dumps(row))
         if name == "balance" and kind == "rbf":
             entry = row
     return entry, rows
+
+
+def k2_row(name: str, kind: str, xs, ys, cb, gs, kp, epochs: int, n_true,
+           reps: int = 3, long_run: bool = False) -> dict:
+    """K2 against its plain version on one set of lanes (alpha and the
+    margins f, each scaled by its lane's C, within 5e-4 and 5e-3 absolute
+    and 1e-3 relative; masked rows exactly 0), and its times: ``ms`` by
+    CUDA events after a warm-up (none when ``reps`` is 1), ``plain_ms``
+    the compared call of the plain version, by CUDA events.
+
+    A ``long_run`` (a full har12 launch at the fit's epochs) is held to
+    the solver's invariants instead: every alpha in its box [0, C], 0 on
+    masked rows, every margin finite.  Over that many epochs the f32
+    rounding of ill-conditioned lanes (large gamma and C) drifts in any
+    implementation, the kernel's and the plain version's each their own
+    way; the row counts the values that part beyond the tolerances and,
+    where some do, gives each f32 solution's distance from the plain
+    version run in f64 (``f64_drift``)."""
+    import torch
+
+    from repro_torch.kernels import ref, solver
+
+    if kind == "gram":
+        run = lambda: solver.solve_lanes_gram_cuda(kp, ys, cb, epochs)
+        plain = lambda dt=torch.float32: ref.solve_lanes_gram(
+            kp.to(dt), ys.to(dt), cb.to(dt), epochs)
+    else:
+        run = lambda: solver.solve_lanes_cuda(xs, ys, cb, gs, kind, epochs)
+        plain = lambda dt=torch.float32: ref.solve_lanes(
+            xs.to(dt), ys.to(dt), cb.to(dt), gs.to(dt), kind, epochs)
+    a, f = run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    a_p, f_p = plain()
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    scale = cb.amax(-1).clamp(min=1.0)[:, None, :, None]   # per lane C
+    ok_a, err_a = within(a / scale, a_p / scale, 5e-4, 1e-3)
+    ok_f, err_f = within(f / scale, f_p / scale, 5e-3, 1e-3)
+    beyond = int(((a - a_p).abs() / scale > 5e-4 + 1e-3 * a_p.abs() / scale
+                  ).sum() + ((f - f_p).abs() / scale
+                             > 5e-3 + 1e-3 * f_p.abs() / scale).sum())
+    pad_ok = bool((a[cb[:, None].expand_as(a) == 0] == 0).all())
+    invariants = bool(((a >= 0) & (a <= cb[:, None])).all()
+                      and torch.isfinite(f).all())
+    drift = None
+    if long_run and beyond:
+        a64, _ = plain(torch.float64)
+        drift = f64_drift(a, a_p, a64, scale)
+        del a64
+    max_abs_err = max(float((a - a_p).abs().max()),
+                      float((f - f_p).abs().max()))
+    del a_p, f_p
+    ok = invariants if long_run else ok_a and ok_f
+    if not (ok and pad_ok):
+        raise AssertionError(
+            f"K2 {kind} {name}: alpha err {err_a} f err {err_f} "
+            f"masked rows exact {pad_ok} in the box {invariants}")
+    ms = cuda_ms(run, reps=reps, warmup=1 if reps > 1 else 0)
+    p, n = ys.shape
+    g = kp.shape[1] if kind == "gram" else gs.shape[1]
+    lanes = p * g * cb.shape[1]
+    d = 0 if kind == "gram" else xs.shape[2]
+    n_bytes = 4 * (p * n * (d + 1) + cb.numel() + 2 * lanes * n
+                   + (kp.numel() if kind == "gram" else gs.numel()))
+    b, by = bound_ms(n_bytes, k2_ops(cb, n_true, g, epochs, kind, d))
+    steps = (epochs + 1) * -(-n // 16)   # coordinate blocks + final pass
+    row = dict(name=name, kind=kind, shape=[p, g, cb.shape[1], n, d],
+               epochs=epochs, serial_chain=epochs * n,
+               us_per_block_step=ms * 1e3 / steps,
+               max_abs_err=max_abs_err,
+               max_rel_lane_err=max(err_a, err_f),
+               beyond_tolerance=beyond, f64_drift=drift, ms=ms,
+               plain_ms=plain_ms, bound_ms=b, bound_by=by)
+    log("K2", json.dumps(row))
+    return row
+
+
+def f64_drift(a, a_p, a64, scale) -> dict:
+    """Each f32 solution's alpha against the f64 one, per lane the largest
+    distance scaled by the lane's C: the largest and the mean over lanes,
+    and the share of lanes where the kernel's is the larger."""
+    lane = lambda t: ((t.double() - a64).abs() / scale).amax(-1).flatten()
+    k, p = lane(a), lane(a_p)
+    return dict(kernel_max=float(k.max()), plain_max=float(p.max()),
+                kernel_mean=float(k.mean()), plain_mean=float(p.mean()),
+                kernel_farther_share=float((k > p).double().mean()))
+
+
+def check_k2_har12(dev, est, padded) -> list:
+    """K2 on the full har12 fit's own launches, each against its plain
+    version: the linear and rbf CV grids (66 pairs x 1 or 7 gammas x 35
+    lanes, n = 1582: with 462 (pair, gamma) cells on 132 SMs each CTA
+    carries 18 lanes in shared memory near the opt-in limit), the first
+    gamma of the gated hw family's Gram-input grid, and the rbf refit at
+    the fit's own (gamma, C) picks.  Each runs at
+    ``HAR12_K2_SHORT_EPOCHS``, where the f32 drift has not set in, at the
+    plain tolerances, and at the fit's epochs as a long run.  Then the
+    largest pair's rbf lanes alone against the same lanes in the full
+    grid."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import svm, trainer
+    from repro_torch.kernels import solver
+
+    cv_epochs = est.cv_epochs if est.cv_epochs is not None else max(
+        60, est.n_epochs // 2)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x, y, fm, valid = trainer._pair_tensors(padded, dev)
+    cs = torch.as_tensor(trainer.DEFAULT_CS, **f32)
+    n_f = fm.shape[1]
+    c_box = (torch.repeat_interleave(cs, n_f)[None, :, None]
+             * fm.repeat(1, cs.shape[0], 1) * valid[:, None, :]).contiguous()
+    p = x.shape[0]
+    rbf_g = torch.as_tensor(np.broadcast_to(
+        trainer.DEFAULT_RBF_GAMMAS, (p, len(trainer.DEFAULT_RBF_GAMMAS))
+    ).copy(), **f32)
+    hw_kernel = trainer._training_kernel(est.hw_.kernel_response, dev)
+    hw_g = torch.as_tensor(trainer.hw_gamma_grid(est.hw_)[:1], **f32)
+    kp = svm.callable_grams(hw_kernel, x, hw_g[None].expand(p, -1)
+                            ).contiguous()
+    picks = [pr.model_rbf for pr in est.pairs_]
+    g_sel = torch.as_tensor([[m.gamma] for m in picks], **f32)
+    c_sel = torch.as_tensor([m.c for m in picks], **f32)
+    refit_box = (c_sel[:, None] * valid)[:, None, :].contiguous()
+    rows = []
+    for name, kind, cb, gs, kpc, epochs in (
+            ("har12/cv", "linear", c_box, torch.ones((p, 1), **f32), None,
+             cv_epochs),
+            ("har12/cv", "rbf", c_box, rbf_g, None, cv_epochs),
+            ("har12/cv-gated-gamma0", "gram", c_box, None, kp, cv_epochs),
+            ("har12/refit", "rbf", refit_box, g_sel, None, est.n_epochs)):
+        for run_epochs in (HAR12_K2_SHORT_EPOCHS, epochs):
+            rows.append(k2_row(name, kind, x, y, cb, gs, kpc, run_epochs,
+                               padded.n_true, reps=1,
+                               long_run=run_epochs == epochs))
+            torch.cuda.empty_cache()
+    # The regime itself: the largest pair's lanes launched alone (2 per
+    # CTA) equal, bit for bit, the same lanes inside the full grid (18 per
+    # CTA).
+    big = int(np.argmax(padded.n_true))
+    one = lambda t: t[big:big + 1].contiguous()
+    full, _ = solver.solve_lanes_cuda(x, y, c_box, rbf_g, "rbf", cv_epochs)
+    alone, _ = solver.solve_lanes_cuda(one(x), one(y), one(c_box),
+                                       one(rbf_g), "rbf", cv_epochs)
+    if not torch.equal(full[big], alone[0]):
+        raise AssertionError(f"K2: har12 pair {big}'s lanes alone differ "
+                             "from the same lanes in the full grid")
+    log("K2 har12 lanes alone = in the full grid, bit for bit: pair", big)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -900,6 +1063,292 @@ def monte_carlo_phase(est, dev) -> dict:
         chunk_trace=stream_chunk_trace(sm, x64, y64, a, floor64))
     log("MC", json.dumps(row))
     return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the K >= 10 scale-out on har12
+# ---------------------------------------------------------------------------
+
+
+def deciders_on(est, target: str, xq, dev, tmp: str) -> dict:
+    """Votes and DAG fronts of one deployed target on the test rows."""
+    import numpy as np
+
+    from repro_torch.api import CompiledMachine
+    from repro_torch.core import ovo
+    from repro_torch.kernels import ops
+
+    k = est.n_classes_
+    m_votes = est.deploy(target)
+    m_dag = est.deploy(target, decider="dag")
+    ops.reset_launches()
+    labels_v = m_votes.predict(xq)
+    k1_votes = ops.launch_counts()["kernel_matrix"]
+    ops.reset_launches()
+    labels_d = m_dag.predict(xq)
+    k1_dag = ops.launch_counts()["kernel_matrix"]
+    if k1_dag != 0:
+        raise AssertionError(f"{target}: the DAG gather launched K1")
+    scores = m_votes.decision_scores(xq)
+    bits = m_votes.predict_bits(xq)
+    if not np.isfinite(scores).all() or labels_d.shape != labels_v.shape:
+        raise AssertionError(f"{target}: bad output")
+    clear = (np.abs(scores) > 1e-5).all(axis=1)
+    cond = ovo.condorcet_mask(bits, k) & clear
+    off = int((labels_d[cond] != labels_v[cond]).sum())
+    if off:
+        raise AssertionError(f"{target}: DAG != votes on {off} of "
+                             f"{int(cond.sum())} Condorcet samples off ties")
+    if not np.array_equal(labels_d[clear],
+                          ovo.decide_dag(bits, k)[clear]):
+        raise AssertionError(f"{target}: DAG != decide_dag of the bits")
+    path = f"{tmp}/{target}_dag"
+    m_dag.save(path)
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    if (meta["format"], meta["decider"]) != ("repro.api.CompiledMachine",
+                                             "dag"):
+        raise AssertionError(f"{target}: the save is not a DAG machine")
+    again = CompiledMachine.load(path, device=dev)
+    if again.decider != "dag" or not np.array_equal(again.predict(xq),
+                                                    labels_d):
+        raise AssertionError(f"{target}: the DAG save does not round-trip")
+    host = CompiledMachine.load(path, device="cpu")
+    clear_both = clear & (np.abs(host.decision_scores(xq)) > 1e-5).all(axis=1)
+    cpu_off = int((host.predict(xq)[clear_both]
+                   != labels_d[clear_both]).sum())
+    if cpu_off:
+        raise AssertionError(f"{target}: card DAG != CPU DAG on {cpu_off} "
+                             "samples off ties")
+    t_votes = predict_times(m_votes, xq)
+    t_dag = predict_times(m_dag, xq)
+    n = len(xq)
+    return dict(
+        target=target, n_linear_pairs=m_dag.n_linear_pairs,
+        n_kernel_pairs=m_dag.n_kernel_pairs,
+        condorcet_off_ties=int(cond.sum()), off_ties=int(clear.sum()),
+        agreement=float(np.mean(labels_d == labels_v)),
+        k1_launches_votes_predict=k1_votes, k1_launches_dag_predict=k1_dag,
+        votes_ms=t_votes, dag_ms=t_dag,
+        votes_qps=n / (t_votes["median"] / 1e3),
+        dag_qps=n / (t_dag["median"] / 1e3),
+        card_vs_cpu_compared=int(clear_both.sum()),
+        save_roundtrip=True)
+
+
+def best_wall_s(fn, reps: int = 3):
+    """(best wall time in s of ``reps`` synchronized calls after one
+    warm-up, the last call's result)."""
+    import torch
+
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return min(walls), walls, out
+
+
+def ladder_grid(padded, dev) -> list:
+    """The size-sharded rbf CV grid at D in LADDER_SHARDS shards on one
+    card: every D equal to D = 1's within 1e-6.  Each rung also times each
+    of its shards alone (its own trimmed launch, synchronized), so the
+    wall can be read against the largest shard's time (full overlap) and
+    the shards' sum (none)."""
+    import numpy as np
+
+    from repro_torch.core import trainer
+
+    g, c = np.asarray(LADDER_GAMMAS), np.asarray(LADDER_CS)
+    n_true = np.asarray(padded.n_true)
+    true_units = int(sum(int(n) ** 2 for n in n_true)) * len(g) * len(c)
+    rungs, base = [], None
+    for d in LADDER_SHARDS:
+        shards = trainer.shard_lane_layout(padded.n_true, d)
+        _, walls, acc = best_wall_s(
+            lambda: trainer.family_cv_grid_size_sharded(
+                padded, "rbf", g, c, LADDER_EPOCHS, devices=[dev] * d))
+        alone = [best_wall_s(lambda s=s: trainer.family_cv_grid(
+            padded.take([int(i) for i in s]).trim(), "rbf", g, c,
+            LADDER_EPOCHS, device=dev))[0] for s in shards]
+        if base is None:
+            base = acc
+        err = float(np.abs(acc - base).max())
+        if err > 1e-6:
+            raise AssertionError(f"size-sharded grid at D = {d} != D = 1 "
+                                 f"(max |diff| {err})")
+        padded_units = sum(len(s) * int(n_true[s].max()) ** 2
+                           for s in shards) * len(g) * len(c)
+        rungs.append(dict(
+            d=d, n_shards=len(shards), wall_s=min(walls), walls_s=walls,
+            shard_maxes=[int(n_true[s].max()) for s in shards],
+            padded_work_units=int(padded_units),
+            true_work_units=true_units,
+            padded_over_true=padded_units / true_units,
+            lane_units_per_s=true_units / min(walls), max_abs_diff=err,
+            shard_alone_s=alone, shard_alone_sum_s=sum(alone)))
+        log("LADDER", json.dumps(rungs[-1]))
+    return rungs
+
+
+def timed_fit(ds, dev):
+    """``MixedKernelSVM(device=dev).fit`` on the full training split at
+    the estimator's defaults: (estimator, wall s, launches, peak bytes)."""
+    import torch
+
+    from repro_torch.api import MixedKernelSVM
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    est = MixedKernelSVM(device=dev).fit(ds.x_train, ds.y_train)
+    torch.cuda.synchronize()
+    return (est, time.perf_counter() - t0, ops.launch_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def fit_solver_launches(padded, hw) -> int:
+    """K2 launches of one fit by the trainer's rule: a CV grid and a refit
+    for each of the three families, the hw family's CV grid one launch per
+    gamma when its stacked Grams pass ``CV_GRID_VMAP_BYTES``."""
+    from repro_torch.core import trainer
+
+    hw_gammas = trainer.hw_gamma_grid(hw)
+    hw_cv = len(hw_gammas) if trainer._seq_gamma(padded.x, hw_gammas) else 1
+    return 2 + 2 + hw_cv + 1
+
+
+def same_fit(est, other) -> None:
+    """Two fits of one split: the same kernel map, and for every pair and
+    family the same (gamma, C), support set and coefficients, bit for
+    bit."""
+    import numpy as np
+
+    if other.kernel_map_ != est.kernel_map_:
+        raise AssertionError("the two har12 fits differ in kernel map")
+    for pa, pb in zip(est.pairs_, other.pairs_):
+        for slot in ("model_linear", "model_rbf", "model_hw"):
+            ma, mb = getattr(pa, slot), getattr(pb, slot)
+            if (ma is None) != (mb is None):
+                raise AssertionError(f"{pa.pair} {slot}: one fit lacks it")
+            if ma is None:
+                continue
+            if ((ma.gamma, ma.c, ma.bias) != (mb.gamma, mb.c, mb.bias)
+                    or not np.array_equal(ma.alpha, mb.alpha)
+                    or not np.array_equal(ma.support_x, mb.support_x)):
+                raise AssertionError(f"{pa.pair} {slot}: the two har12 fits "
+                                     "differ")
+
+
+def scaleout_phase(dev):
+    """Phase 10: Algorithm 1 on the full har12 training split (with the
+    Gram-memory gate as the trainer sets it, then off), both decision
+    fronts, the K = 12 closure and the size-sharded grid.  Returns (the
+    phase's row, the gated fit's estimator, the padded pairs it trained
+    on)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import hwcost, trainer
+    from repro_torch.data import datasets
+
+    ds = datasets.load("har12")
+    if (ds.x_train.shape, ds.x_test.shape[0], ds.n_classes) != HAR12_SHAPE:
+        raise AssertionError(f"har12 is not the {HAR12_SHAPE} set")
+    xq, yq = ds.x_test, ds.y_test
+    padded = trainer.pad_pairs(ds.x_train, ds.y_train, ds.n_classes,
+                               n_folds=5, seed=0)
+    est, fit_s, fit_counts, fit_peak = timed_fit(ds, dev)
+    gated = trainer._seq_gamma(padded.x, trainer.hw_gamma_grid(est.hw_))
+    log("har12 fit:", json.dumps(dict(
+        fit_s=fit_s, launches=fit_counts, peak_bytes=fit_peak,
+        hw_cv_gated=gated, n_rbf=est.n_rbf_, kernel_map=est.kernel_map_)))
+    want = fit_solver_launches(padded, est.hw_)
+    if fit_counts["solver"] != want:
+        raise AssertionError(f"har12 fit: {fit_counts['solver']} K2 "
+                             f"launches, the trainer's rule gives {want}")
+    # The same fit with the Gram-memory gate off: the hw family's 7 Grams
+    # stacked into one launch.  The lanes are independent, so every pick
+    # and coefficient must be the gated fit's, bit for bit.
+    gate = trainer.CV_GRID_VMAP_BYTES
+    trainer.CV_GRID_VMAP_BYTES = 1 << 62
+    try:
+        want_off = fit_solver_launches(padded, est.hw_)
+        stacked, stacked_s, stacked_counts, stacked_peak = timed_fit(ds, dev)
+    finally:
+        trainer.CV_GRID_VMAP_BYTES = gate
+    log("har12 fit, gate off:", json.dumps(dict(
+        fit_s=stacked_s, launches=stacked_counts, peak_bytes=stacked_peak)))
+    if stacked_counts["solver"] != want_off:
+        raise AssertionError(f"har12 fit, gate off: {stacked_counts['solver']}"
+                             f" K2 launches, the trainer's rule gives "
+                             f"{want_off}")
+    same_fit(est, stacked)
+    del stacked
+
+    cm = hwcost.CostModel()
+    table = []
+    for design, target in (("linear", "linear"), ("rbf", "rbf"),
+                           ("mixed", "circuit")):
+        cost = hwcost.system_cost(est.bank(target), cm)
+        table.append(dict(design=design,
+                          accuracy=est.score(xq, yq, target=target),
+                          area_mm2=float(cost.area_mm2),
+                          power_mw=float(cost.power_mw)))
+    log("TABLE2", json.dumps(dict(dataset="har12", designs=table,
+                                  cost_model="default units")))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fronts = [deciders_on(est, t, xq, dev, tmp)
+                  for t in ("circuit", "rbf")]
+    for f in fronts:
+        log("DECIDERS", json.dumps(f))
+    k1_votes = fronts[1]["k1_launches_votes_predict"]
+    if k1_votes < 1:
+        raise AssertionError("the rbf votes predict launched no K1")
+
+    xv, yv = xq[:400], yq[:400]
+    closure = {}
+    for name, fn in (
+            ("pareto", lambda: est.pareto(xv, yv)),
+            ("monte_carlo_dense_v16", lambda: est.monte_carlo(
+                xv, yv, n_variants=16)),
+            ("monte_carlo_iid_v64_chunk16", lambda: est.monte_carlo(
+                xv, yv, n_variants=64, method="iid", mc_chunk=16))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        closure[name] = dict(s=time.perf_counter() - t0)
+        if name == "pareto":
+            closure[name].update(exhaustive=bool(out.exhaustive),
+                                 evaluated=int(out.assignments.shape[0]),
+                                 front=int(len(out.front)))
+        else:
+            closure[name].update(mean=float(out.mean))
+    if closure["pareto"]["exhaustive"]:
+        raise AssertionError("K = 12 must take the portfolio search")
+    log("CLOSURE", json.dumps(closure))
+
+    ladder = ladder_grid(padded, dev)
+    row = dict(dataset="har12", n_train=len(ds.y_train), n_test=len(yq),
+               k=ds.n_classes, p=len(est.pairs_), n_max=padded.n_max,
+               n_min=int(min(padded.n_true)), fit_s=fit_s,
+               fit_launches=fit_counts, fit_peak_bytes=fit_peak,
+               hw_cv_gated=gated,
+               gate_off=dict(fit_s=stacked_s, launches=stacked_counts,
+                             peak_bytes=stacked_peak),
+               n_rbf=est.n_rbf_, table2=table, deciders=fronts,
+               closure=closure, ladder=ladder)
+    log("SCALEOUT", json.dumps(row))
+    return row, est, padded
 
 
 # ---------------------------------------------------------------------------
@@ -1421,7 +1870,11 @@ def main() -> int:
     log("launches on the design-space / Monte-Carlo path (it reaches no "
         "hand kernel):", json.dumps(ops.launch_counts()))
 
-    k1, k1_rows = check_k1(dev, fitted)
+    scale, har12, padded = scaleout_phase(dev)
+    k2_rows += check_k2_har12(dev, har12, padded)
+
+    k1, k1_rows = check_k1(dev, {**fitted, "har12": har12})
+    del har12
 
     check_small_input(dev)
 
@@ -1451,9 +1904,15 @@ def main() -> int:
              device_launches_per_call=k1["device_launches_per_call"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None, shape=k1["shape"],
+             har12_rbf_predict_launches=scale["deciders"][1][
+                 "k1_launches_votes_predict"],
              har12_width={f"{r['kind']}_{key}": r[key] for r in k1_rows
-                          if r["name"].startswith("har12")
-                          for key in ("ms", "bound_ms")}),
+                          if r["name"] == "har12/padded-training-set"
+                          for key in ("ms", "bound_ms")},
+             har12_banks={r["name"]: {key: r[key] for key in (
+                 "shape", "ms", "plain_ms", "bound_ms", "max_abs_err")}
+                 for r in k1_rows if r["name"] in ("har12/rbf",
+                                                   "har12/rbf_float")}),
         dict(name="solver", route="cuda",
              source="src/repro_torch/kernels/csrc/solver.cu",
              replaces="src/repro/kernels/solver.py:126",
@@ -1461,7 +1920,14 @@ def main() -> int:
                     "a CTA and each K' slab in shared memory",
              launches=counts["solver"], max_abs_err=k2["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None, shape=k2["shape"]),
+             bound_by=k2["bound_by"], library_ms=None, shape=k2["shape"],
+             har12_fit_launches=scale["fit_launches"]["solver"],
+             har12_fit_lanes={
+                 f"{r['name']}/{r['kind']}/{r['epochs']}": {
+                     key: r[key] for key in (
+                         "shape", "ms", "plain_ms", "bound_ms", "max_abs_err",
+                         "beyond_tolerance", "f64_drift")}
+                 for r in k2_rows if r["name"].startswith("har12/")}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:90",

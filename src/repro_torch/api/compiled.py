@@ -20,9 +20,12 @@ contraction after it is a batched matmul.  The analog 'hw' kind evaluates
 the calibrated measured-curve kernel (interpolation + product).
 
 The decision encoder is the packed truth table for P <= 12 pair bits and
-vote counting + argmax (lowest-index tiebreak) above.  Saves are the
-reference's npz + json format (version 1), read and written alike.  The
-DAG decision front waits for a later slice.
+vote counting + argmax (lowest-index tiebreak) above.  A machine built with
+``decider="dag"`` predicts through the DDAG elimination front instead: K-1
+steps, each gathering the one pair a sample still has to consult and
+scoring it alone (plain torch; K1 scores a shared query block, not a pair
+per sample).  Saves are the reference's npz + json format (version 1),
+read and written alike, the decider included.
 
 The same lowering serves the kernel-assignment design space
 (``repro_torch.core.dse``):
@@ -67,16 +70,20 @@ from repro_torch.core.ovo import (
     MulticlassSVM,
     build_encoder_table,
     class_pairs,
+    pair_index_matrix,
 )
 from repro_torch.core.svm import SVMModel
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 _FORMAT_VERSION = 1
 _FORMAT = "repro.api.CompiledMachine"
 
-#: Decision fronts of this slice (the DAG front waits).
-DECIDERS = ("votes",)
+#: Decision fronts a machine can be built with.  ``"votes"``: every pair
+#: evaluated, encoder table / votes argmax; ``"dag"``: the DDAG elimination
+#: front, K-1 pair evaluations per sample, equal to votes wherever a
+#: Condorcet winner exists (``repro_torch.core.ovo.decide_dag``).
+DECIDERS = ("votes", "dag")
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +456,192 @@ class _Decider:
 
 
 # ---------------------------------------------------------------------------
+# DAG decision front: O(K) pair evaluations per sample
+# ---------------------------------------------------------------------------
+
+
+def _banks_device(linear_banks, kernel_banks) -> torch.device:
+    for b in linear_banks:
+        return b.w.device
+    for b in kernel_banks:
+        return b.sv.device
+    raise ValueError("a machine needs at least one bank")
+
+
+def _dag_row_maps(linear_banks, kernel_banks, n_pairs: int):
+    """Host-built global-pair -> bank-row gather maps, one per bank.
+
+    For each bank (linear banks first, then kernel banks — the DAG front
+    iterates them in the same order) returns ``(rows, mask)`` on the banks'
+    device: ``rows (P,)`` int64 maps a global pair index to the bank row
+    holding it (0 where the bank does not own the pair) and ``mask (P,)``
+    f32 is 1.0 exactly on the owned pairs.  A sample's per-step score is
+    the masked sum over banks, so every pair is scored by precisely the
+    datapath that owns it.
+    """
+    dev = _banks_device(linear_banks, kernel_banks)
+    maps = []
+    for b in list(linear_banks) + list(kernel_banks):
+        rows = np.zeros(n_pairs, np.int64)
+        mask = np.zeros(n_pairs, np.float32)
+        for r, g in enumerate(np.asarray(b.pair_idx)):
+            rows[int(g)] = r
+            mask[int(g)] = 1.0
+        maps.append((_t(rows, dev, torch.int64), _t(mask, dev)))
+    return maps
+
+
+def _dag_step_plans(linear_banks, kernel_banks, n_classes: int):
+    """Static per-step work plans for the DAG gather front.
+
+    At step ``t`` the carried interval satisfies ``hi - lo == K-1-t``, so
+    the only pairs a sample can visit are ``{(j, j + K-1-t) : j <= t}``.
+    For every bank and step this precomputes:
+
+    * ``None`` — the bank owns no reachable pair: skip it (its masked
+      contribution would be an exact ``0.0`` for every sample);
+    * ``-1`` (linear banks) — participate, nothing to slice;
+    * ``m_t > 0`` (kernel banks) — participate, and slice the support axis
+      to the largest support length over the reachable owned pairs: the
+      slots up to a pair's last nonzero coefficient.  The slots after it
+      (the bank's padding) carry zero coefficients, so dropping them
+      removes ``+0.0`` terms from the rails' sums.  The length is not the
+      count of nonzero coefficients, as the reference takes it: a
+      quantized digital bank can hold a zero coefficient between nonzero
+      ones, and slicing to the count would drop real support vectors.
+    """
+    pairs = class_pairs(n_classes)
+    idx = {p: i for i, p in enumerate(pairs)}
+    n_lin = len(linear_banks)
+    owned = []
+    for bi, b in enumerate(list(linear_banks) + list(kernel_banks)):
+        if bi < n_lin:
+            owned.append({int(g): 0 for g in np.asarray(b.pair_idx)})
+        else:
+            nz = (np.abs(b.coef_pos.cpu().numpy())
+                  + np.abs(b.coef_neg.cpu().numpy())) != 0.0     # (P, M)
+            length = np.where(nz.any(axis=1),
+                              nz.shape[1] - np.argmax(nz[:, ::-1], axis=1), 0)
+            owned.append({int(g): int(mm)
+                          for g, mm in zip(np.asarray(b.pair_idx), length)})
+    plans = []
+    for t in range(n_classes - 1):
+        gap = n_classes - 1 - t
+        reach = [idx[(j, j + gap)] for j in range(t + 1)]
+        plan = []
+        for bi, o in enumerate(owned):
+            ms = [o[p] for p in reach if p in o]
+            if not ms:
+                plan.append(None)
+            elif bi < n_lin:
+                plan.append(-1)
+            else:
+                plan.append(max(max(ms), 1))
+        plans.append(tuple(plan))
+    return plans
+
+
+def _gather_kernel(bank: _KernelBank, xv: torch.Tensor, r: torch.Tensor,
+                   m_t: int) -> torch.Tensor:
+    """``(n, m_t)`` kernel values of each sample against the support
+    vectors of its own pair ``r[i]`` of the bank.
+
+    'hw' runs ``_pair_kernel``'s elementwise arithmetic (the same ops in
+    the same order, the product over d taken sequentially), so each value
+    equals the dense path's; 'rbf' / 'sech2' run K1's plain version
+    (``kernels.ref``): K1 scores one query block against every pair, not
+    one pair per sample.
+    """
+    sv = bank.sv[:, :m_t][r]                                  # (n, m_t, d)
+    if bank.kind == "hw":
+        scale, shift = bank.scale[r][:, None], bank.shift[r][:, None]
+        acc = None
+        for k in range(sv.shape[-1]):
+            dv = scale * (xv[:, k:k + 1] - sv[:, :, k]) + shift
+            k1 = _bank_cell(bank, dv)
+            acc = k1 if acc is None else acc * k1
+        return acc
+    if bank.kind == "rbf":
+        return ref.rbf_matrix(xv[:, None, :], sv, bank.gamma[r])[:, 0]
+    if bank.kind == "sech2":
+        return ref.sech2_matrix(xv[:, None, :], sv, bank.gamma[r],
+                                v_scale=1.0)[:, 0]
+    raise TypeError(f"no DAG gather for kernel kind {bank.kind!r}")
+
+
+def _gather_pair_scores(p, linear_banks, kernel_banks, row_maps, xq_cache,
+                        plan=None):
+    """Decision scores of ONE (per-sample) pair: ``p (n,) -> (n,)``.
+
+    The gather sibling of ``_all_scores``: each sample gathers the
+    parameters of the single pair ``p[i]`` from the bank that owns it and
+    evaluates that one classifier.  ``plan`` (one entry of
+    :func:`_dag_step_plans`) skips banks that own no reachable pair this
+    step and slices kernel-bank gathers to the reachable true support
+    count.
+    """
+    total = torch.zeros(p.shape[0], dtype=torch.float32, device=p.device)
+    mi = 0
+    for bank in linear_banks:
+        rows, mask = row_maps[mi]
+        step = None if plan is None else plan[mi]
+        mi += 1
+        if plan is not None and step is None:
+            continue
+        r = rows[p]
+        xv = xq_cache[bank.input_bits]
+        s = torch.sum(xv * bank.w[r], dim=-1) + bank.b[r]
+        total = total + mask[p] * s
+    for bank in kernel_banks:
+        rows, mask = row_maps[mi]
+        step = None if plan is None else plan[mi]
+        mi += 1
+        if plan is not None and step is None:
+            continue
+        m_t = bank.sv.shape[1] if (plan is None or step == -1) else int(step)
+        r = rows[p]
+        k = _gather_kernel(bank, xq_cache[bank.input_bits], r, m_t)
+        coef = torch.stack([bank.coef_pos[:, :m_t][r],
+                            bank.coef_neg[:, :m_t][r]], dim=2)  # (n, m_t, 2)
+        rails = torch.bmm(k[:, None, :], coef)[:, 0]            # (n, 2)
+        s = (rails[:, 0] + bank.bias_pos[r]) \
+            - (rails[:, 1] + bank.bias_neg[r]) + bank.offset[r]
+        total = total + mask[p] * s
+    return total
+
+
+def _dag_labels(x, n_classes: int, pair_matrix, linear_banks, kernel_banks,
+                row_maps, step_plans=None):
+    """DDAG elimination front: ``x (n, d) -> labels (n,)`` in O(n*K).
+
+    A loop of K-1 steps carries the per-sample candidate interval
+    ``(lo, hi)`` on the device; each step scores pair ``(lo, hi)`` through
+    the gather front and eliminates one endpoint (score >= 0: the lower
+    class wins, as ``repro_torch.core.ovo.decide_dag`` reads bit 1).  Each
+    step runs its own static plan from :func:`_dag_step_plans`.  Nothing
+    in the loop reads a device value on the host, so the steps queue
+    without a sync.
+    """
+    xq_cache: dict[int, torch.Tensor] = {}
+    for bank in list(linear_banks) + list(kernel_banks):
+        bits = bank.input_bits
+        if bits not in xq_cache:
+            xq_cache[bits] = x if bits == 0 else quant.quantize_unit(x, bits)
+    n = x.shape[0]
+    lo = torch.zeros(n, dtype=torch.int64, device=x.device)
+    hi = torch.full((n,), n_classes - 1, dtype=torch.int64, device=x.device)
+    for t in range(n_classes - 1):
+        p = pair_matrix[lo, hi]                                 # (n,)
+        plan = None if step_plans is None else step_plans[t]
+        s = _gather_pair_scores(p, linear_banks, kernel_banks, row_maps,
+                                xq_cache, plan)
+        win = s >= 0.0                                          # lower wins
+        lo = torch.where(win, lo, lo + 1)
+        hi = torch.where(win, hi - 1, hi)
+    return lo
+
+
+# ---------------------------------------------------------------------------
 # The compiled machine
 # ---------------------------------------------------------------------------
 
@@ -485,6 +678,26 @@ class CompiledMachine:
                                           self.n_pairs), self.device,
                             torch.int64)
         self._decider = _Decider.build(self.n_classes, self.device)
+        # The dense votes path stays the oracle behind `predict_votes`,
+        # `decision_scores` and `predict_bits`; "dag" adds the O(K) front.
+        self._pair_matrix = None
+        self._row_maps = None
+        self._step_plans = None
+        if decider == "dag":
+            self._pair_matrix = _t(pair_index_matrix(self.n_classes),
+                                   self.device, torch.int64)
+            self._row_maps = _dag_row_maps(linear_banks, kernel_banks,
+                                           self.n_pairs)
+            self._step_plans = _dag_step_plans(linear_banks, kernel_banks,
+                                               self.n_classes)
+
+    @property
+    def n_linear_pairs(self) -> int:
+        return sum(len(b.pair_idx) for b in self._linear_banks)
+
+    @property
+    def n_kernel_pairs(self) -> int:
+        return sum(len(b.pair_idx) for b in self._kernel_banks)
 
     def describe(self) -> str:
         parts = [f"CompiledMachine(K={self.n_classes}, P={self.n_pairs}, "
@@ -508,6 +721,13 @@ class CompiledMachine:
         bits = (scores >= 0.0).to(torch.int32)
         return scores, bits, self._decider(bits)
 
+    def _labels_dag(self, x: torch.Tensor) -> torch.Tensor:
+        """x (n, d) f32 on the machine's device -> labels (n,) via the O(K)
+        DAG front (``decider="dag"``)."""
+        return _dag_labels(x, self.n_classes, self._pair_matrix,
+                           self._linear_banks, self._kernel_banks,
+                           self._row_maps, self._step_plans)
+
     def _as_input(self, x) -> torch.Tensor:
         return _as_input(x, self.device, self.n_features)
 
@@ -523,8 +743,29 @@ class CompiledMachine:
         return self._run(x)[1].cpu().numpy()
 
     def predict(self, x: np.ndarray) -> np.ndarray:
-        """Class labels (n,) via the packed encoder table / vote counting."""
+        """Class labels (n,) via the machine's decision front.
+
+        ``decider="votes"`` (default): every pair is evaluated and the
+        packed encoder table / vote counting decides.  ``decider="dag"``:
+        the DDAG elimination front evaluates K-1 pairs per sample; equal
+        to the votes labels wherever the vote winner is unambiguous
+        (Condorcet), measured by :meth:`dag_votes_agreement` elsewhere.
+        """
+        if self.decider == "dag":
+            return self._labels_dag(self._as_input(x)).cpu().numpy()
         return self._run(x)[2].cpu().numpy()
+
+    def predict_votes(self, x: np.ndarray) -> np.ndarray:
+        """Class labels (n,) via the dense votes path, whatever the
+        machine's ``decider`` — the oracle the DAG front is held to."""
+        return self._run(x)[2].cpu().numpy()
+
+    def dag_votes_agreement(self, x: np.ndarray) -> float:
+        """Fraction of samples where the DAG front and the votes oracle
+        agree (requires ``decider="dag"``)."""
+        if self.decider != "dag":
+            raise ValueError("machine was compiled with decider='votes'")
+        return float(np.mean(self.predict(x) == self.predict_votes(x)))
 
     def accuracy(self, x: np.ndarray, y: np.ndarray) -> float:
         return float(np.mean(self.predict(x) == np.asarray(y)))

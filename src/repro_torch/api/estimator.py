@@ -13,7 +13,8 @@ The port of ``repro.api.estimator``:
 hardware-in-the-loop co-optimization of the analog-bound classifiers, then
 assembles every Table-II design point (``selection.build_banks``).
 ``bank(target)`` returns the object bank the cost model walks;
-``deploy(target)`` lowers it to a ``CompiledMachine`` (cached per target).
+``deploy(target)`` lowers it to a ``CompiledMachine`` (cached per target;
+``decider="dag"`` for the O(K) DDAG decision front).
 
 Targets: ``'float'``, ``'circuit'``, ``'linear'``, ``'rbf'``,
 ``'linear_float'``, ``'rbf_float'``.
@@ -297,9 +298,14 @@ class MixedKernelSVM:
         power_budget: Optional[float] = None,
         yield_floor: Optional[float] = None,
         yield_confidence: Optional[float] = 0.95,
+        decider: str = "votes",
     ) -> CompiledMachine:
         """Lower ``target``'s bank to one batched inference path on the
-        estimator's device (cached per target).
+        estimator's device (cached per target and decider).
+
+        ``decider="dag"`` builds the O(K) DDAG decision front instead of
+        the dense votes path — same banks, K-1 pair evaluations per sample
+        at predict time.
 
         With an ``area_budget`` (mm^2) and/or ``power_budget`` (mW) —
         ``'circuit'`` only — the deployment is instead the most accurate
@@ -313,10 +319,11 @@ class MixedKernelSVM:
         """
         if area_budget is None and power_budget is None \
                 and yield_floor is None:
-            if target not in self._compiled:
-                self._compiled[target] = compile_machine(self.bank(target),
-                                                         device=self.device)
-            return self._compiled[target]
+            key = target if decider == "votes" else f"{target}@{decider}"
+            if key not in self._compiled:
+                self._compiled[key] = compile_machine(
+                    self.bank(target), decider=decider, device=self.device)
+            return self._compiled[key]
         if target != "circuit":
             raise ValueError(
                 "budget-constrained deployment explores the circuit design "
@@ -334,7 +341,7 @@ class MixedKernelSVM:
             self.mc_state_["yield_floor"] = float(yield_floor)
             self.mc_state_["yield_confidence"] = (
                 None if yield_confidence is None else float(yield_confidence))
-        return self.deploy_assignment(self.assignment_)
+        return self.deploy_assignment(self.assignment_, decider=decider)
 
     # -- kernel-assignment design space ------------------------------------------
 
@@ -538,10 +545,11 @@ class MixedKernelSVM:
             assignment=kmap, key_data=np.asarray(sm.key_data).tolist(),
             hist=np.asarray(out["hist"][0]))
 
-    def deploy_assignment(self, assignment: Optional[list] = None
-                          ) -> CompiledMachine:
+    def deploy_assignment(self, assignment: Optional[list] = None,
+                          decider: str = "votes") -> CompiledMachine:
         """Compile the machine of an explicit per-pair kernel assignment
-        (default: ``assignment_`` of a budgeted deploy)."""
+        (default: ``assignment_`` of a budgeted deploy), cached per
+        assignment and decider."""
         self._check_fitted()
         if assignment is None:
             assignment = self.assignment_
@@ -552,9 +560,12 @@ class MixedKernelSVM:
         kmap = _kernel_map(assignment)
         key = "assignment:" + "".join("r" if k == "rbf" else "l"
                                       for k in kmap)
+        if decider != "votes":
+            key += f"@{decider}"
         if key not in self._compiled:
             self._compiled[key] = compile_machine(
-                self._assignment_bank(kmap), device=self.device)
+                self._assignment_bank(kmap), decider=decider,
+                device=self.device)
         return self._compiled[key]
 
     def _assignment_bank(self, kmap: list[str]) -> MulticlassSVM:

@@ -1,10 +1,11 @@
 """One-vs-One multiclass SVM with encoder decision logic (paper Sec. II-A, III-C).
 
-The port of ``repro.core.ovo`` (the DAG front waits for a later slice).
-A K-class problem decomposes into K(K-1)/2 binary classifiers, one per
-class pair (c_i, c_j), i < j, each producing one bit (1: c_i wins).  The
-decision is an encoder: the bit vector indexes a truth table that realises
-vote counting with a lowest-index tiebreak.
+The port of ``repro.core.ovo``.  A K-class problem decomposes into
+K(K-1)/2 binary classifiers, one per class pair (c_i, c_j), i < j, each
+producing one bit (1: c_i wins).  The decision is an encoder: the bit
+vector indexes a truth table that realises vote counting with a
+lowest-index tiebreak.  ``decide_dag`` is the O(K) DDAG elimination
+front's host reference, ``condorcet_mask`` where it must equal the votes.
 
 The deployed digital classifiers are the bespoke fixed-point datapaths
 whose bits feed the encoder; analog RBF classifiers
@@ -86,6 +87,41 @@ def pair_index_matrix(n_classes: int) -> np.ndarray:
         m[i, j] = p
         m[j, i] = p
     return m
+
+
+def decide_dag(bits: np.ndarray, n_classes: int) -> np.ndarray:
+    """DDAG elimination decision (Platt et al.): host-side reference.
+
+    Maintains a candidate interval ``[lo, hi]`` (initially the full class
+    range) and, for exactly K-1 steps, consults the single pair classifier
+    ``(lo, hi)``: bit == 1 means the pair's FIRST class (``lo``) wins, so
+    ``hi`` is eliminated (``hi -= 1``); bit == 0 eliminates ``lo``
+    (``lo += 1``).  After K-1 steps ``lo == hi`` is the label — only
+    O(K) of the P = K(K-1)/2 bits are ever consulted.
+
+    Wherever some class wins ALL K-1 of its pairs (a Condorcet winner) the
+    DAG returns exactly ``decide_votes``'s answer: that class is never
+    eliminated, and it is the unique vote argmax.  Without a Condorcet
+    winner (vote cycles, ties) the two fronts may differ.
+    """
+    bits = np.asarray(bits)
+    k = int(n_classes)
+    pm = pair_index_matrix(k)
+    lead = bits.shape[:-1]
+    lo = np.zeros(lead, np.int64)
+    hi = np.full(lead, k - 1, np.int64)
+    for _ in range(k - 1):
+        b = np.take_along_axis(bits, pm[lo, hi][..., None], axis=-1)[..., 0]
+        hi = np.where(b == 1, hi - 1, hi)
+        lo = np.where(b == 1, lo, lo + 1)
+    return lo
+
+
+def condorcet_mask(bits: np.ndarray, n_classes: int) -> np.ndarray:
+    """Boolean mask of samples whose vote winner is unambiguous (some class
+    won all K-1 of its pairs) — exactly where votes == DAG is guaranteed."""
+    votes = votes_from_bits(bits, n_classes)
+    return votes.max(axis=-1) == n_classes - 1
 
 
 # ---------------------------------------------------------------------------

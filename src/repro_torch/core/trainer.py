@@ -19,13 +19,19 @@ Algorithm 1 is restructured as a fixed-shape batched program:
     (as ``np.unravel_index(np.argmax(...))``), one full-set refit launch,
     and a host-side extraction of the support sets.
 
-The shard_map and size-sharded layouts of the reference wait for a later
-slice.
+The stored Grams of the hardware-in-the-loop family are gated by
+:data:`CV_GRID_VMAP_BYTES`: past it the CV grid runs one Gram-input launch
+per gamma (``_seq_gamma``), so one gamma's Grams are live at a time.  For
+K >= 10 the size-sharded layout (``shard_lane_layout``,
+``family_cv_grid_size_sharded``) trims each shard of pairs to its own
+largest subset and runs it as its own launch, on its own CUDA stream.  The
+reference's mesh layout (``_cv_grid_sharded``) waits for a later slice.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -128,6 +134,43 @@ class PaddedPairs:
     @property
     def n_max(self) -> int:
         return int(self.x.shape[1])
+
+    def take(self, idx: Sequence[int]) -> "PaddedPairs":
+        """Sub-stack along the pair axis (e.g. the RBF-selected pairs)."""
+        idx = list(idx)
+        return PaddedPairs(
+            pairs=[self.pairs[i] for i in idx],
+            x=self.x[idx], y=self.y[idx], valid=self.valid[idx],
+            fold_masks=self.fold_masks[idx],
+            n_true=[self.n_true[i] for i in idx],
+            subsets=[self.subsets[i] for i in idx],
+        )
+
+    def trim(self) -> "PaddedPairs":
+        """Re-pad to this stack's OWN max subset size.
+
+        ``take`` keeps the original global ``n_max``; a size-sharded
+        layout (``shard_lane_layout``) trims each shard so its solver
+        lanes pay only the shard's padding, not the global tail's.
+        Slicing is exact: rows past a pair's ``n_true`` are padding
+        (valid 0, y +1, mask 0) whatever the stack width.
+        """
+        m = max(self.n_true)
+        if m == self.n_max:
+            return self
+        return PaddedPairs(
+            pairs=self.pairs, x=self.x[:, :m], y=self.y[:, :m],
+            valid=self.valid[:, :m], fold_masks=self.fold_masks[:, :, :m],
+            n_true=self.n_true, subsets=self.subsets)
+
+
+def _pair_tensors(padded: PaddedPairs, device: torch.device):
+    """``(x, y, fold_masks, valid)`` of a stack as f32 tensors on
+    ``device``."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), **f32)
+                 for a in (padded.x, padded.y, padded.fold_masks,
+                           padded.valid))
 
 
 def cv_fold_assignment(n: int, n_folds: int, seed: int) -> np.ndarray:
@@ -232,12 +275,40 @@ def _training_kernel(kind, device: torch.device):
 # ---------------------------------------------------------------------------
 
 
+#: Gram-footprint gate for the CV grid of a callable (hardware-in-the-loop)
+#: kernel: when its stored per-gamma Gram stack (P * G * n_max^2 f32 bytes)
+#: would exceed this, the gamma axis runs one Gram-input launch per gamma,
+#: so one gamma's Grams are live at a time.  At the scale-out workload
+#: (P=66, G=7, n_max=1582) the stack is ~4.6 GB; one gamma's is 660 MB.
+#: The string kinds recompute Gram rows inside the solver and never store
+#: one.  The reference's limit holds on an 80 GB H100 too: there each of
+#: the 7 per-gamma launches already fills the 132 SMs (66 cells x 2 CTAs),
+#: the stacked launch runs the same CTAs in 7 waves, and chip_smoke.py's
+#: phase 10 measures the full har12 fit as fast either way with ~4 GB more
+#: peak memory stacked.
+CV_GRID_VMAP_BYTES = 1 << 30
+
+
+def _seq_gamma(x, gammas) -> bool:
+    """The sequential-gamma choice of the CV grid, from shapes alone."""
+    p, n = x.shape[0], x.shape[1]
+    return p * gammas.shape[0] * n * n * 4 > CV_GRID_VMAP_BYTES
+
+
 def _cv_grid_all_pairs(x, y, fold_masks, valid, gammas, cs, kind,
                        n_epochs) -> torch.Tensor:
-    """(P, G, C) CV accuracy of every pair: one lanes launch."""
+    """(P, G, C) CV accuracy of every pair: one lanes launch, or one per
+    gamma for a callable kernel past the Gram gate (the lanes of one gamma
+    do not depend on another's, so the results are the same)."""
     gammas_pg = gammas[None].expand(x.shape[0], -1).contiguous()
-    return svm_mod.cv_lanes_accuracy(x, y, fold_masks, valid, gammas_pg, cs,
-                                     kind, n_epochs)
+    if isinstance(kind, str) or not _seq_gamma(x, gammas):
+        return svm_mod.cv_lanes_accuracy(x, y, fold_masks, valid, gammas_pg,
+                                         cs, kind, n_epochs)
+    return torch.cat([
+        svm_mod.cv_lanes_accuracy(x, y, fold_masks, valid,
+                                  gammas_pg[:, g:g + 1].contiguous(), cs,
+                                  kind, n_epochs)
+        for g in range(gammas_pg.shape[1])], dim=1)
 
 
 def _refit_all_pairs(x, y, valid, gamma_sel, c_sel, kind,
@@ -265,6 +336,137 @@ def _family_program(x, y, fold_masks, valid, gammas, cs, kind, cv_epochs,
     return acc, gi, ci, alpha
 
 
+def family_cv_grid(padded: PaddedPairs, kind, gammas: np.ndarray,
+                   cs: np.ndarray, n_epochs: int, device=None) -> np.ndarray:
+    """CV-accuracy tensor ``(P, |gammas|, |cs|)`` for one kernel family.
+
+    ``kind`` is a kernel name or a callable (hardware-in-the-loop); the
+    grid runs on ``device`` (None: the card).
+    """
+    dev = resolve_device(device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return _cv_grid_all_pairs(
+        *_pair_tensors(padded, dev), torch.as_tensor(np.asarray(gammas), **f32),
+        torch.as_tensor(np.asarray(cs), **f32), _training_kernel(kind, dev),
+        int(n_epochs)).cpu().numpy()
+
+
+def family_refit(padded: PaddedPairs, kind, gamma_sel: np.ndarray,
+                 c_sel: np.ndarray, n_epochs: int, device=None) -> np.ndarray:
+    """Full-set solve of every pair at its selected hyper-parameters:
+    alphas ``(P, n_max)``."""
+    dev = resolve_device(device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x, y, _, valid = _pair_tensors(padded, dev)
+    return _refit_all_pairs(
+        x, y, valid, torch.as_tensor(np.asarray(gamma_sel), **f32),
+        torch.as_tensor(np.asarray(c_sel), **f32),
+        _training_kernel(kind, dev), int(n_epochs)).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Size-sharded lane layout: launches padded to their own shard max
+# ---------------------------------------------------------------------------
+
+
+def shard_lane_layout(n_true: Sequence[int], n_shards: int
+                      ) -> list[np.ndarray]:
+    """Partition pairs into ``<= n_shards`` contiguous size-sorted shards.
+
+    The global-pad layout (`pad_pairs` + one launch) makes every solver
+    lane pay ``n_max^2`` work; with the long-tailed subset sizes of a
+    K>=10 OvO grid (har12: 198..1582) most of that is padding.  This
+    layout sorts pairs by true subset size and chooses shard boundaries
+    by dynamic programming to minimize the MAKESPAN of padded work,
+    modeling a shard's cost as ``count * shard_max^2`` (the blocked
+    solver's dominant term).  Each shard is then trimmed to its own max
+    (``PaddedPairs.trim``) and run as its own launch, so the padding
+    waste is bounded by the within-shard size spread rather than the
+    global one.
+
+    Returns a list of index arrays into the ORIGINAL pair order; their
+    concatenation is a permutation of ``range(len(n_true))``.  At
+    ``n_shards=1`` this degenerates to one shard at the global max.
+    O(n_shards * P^2) — trivial at P=66.
+    """
+    p = len(n_true)
+    if p == 0:
+        return []
+    n_shards = max(1, min(int(n_shards), p))
+    order = np.argsort(np.asarray(n_true), kind="stable")
+    sizes = np.asarray(n_true)[order].astype(np.int64)
+
+    def cost(i, j):  # shard = sorted pairs [i, j)
+        return int(j - i) * int(sizes[j - 1]) ** 2
+
+    inf = float("inf")
+    best = [[inf] * (n_shards + 1) for _ in range(p + 1)]
+    cut = [[0] * (n_shards + 1) for _ in range(p + 1)]
+    best[0][0] = 0.0
+    for j in range(1, p + 1):
+        for s in range(1, min(n_shards, j) + 1):
+            for i in range(s - 1, j):
+                if best[i][s - 1] == inf:
+                    continue
+                c = max(best[i][s - 1], cost(i, j))
+                if c < best[j][s]:
+                    best[j][s], cut[j][s] = c, i
+    s_best = min(range(1, n_shards + 1), key=lambda s: best[p][s])
+    bounds, j = [], p
+    for s in range(s_best, 0, -1):
+        i = cut[j][s]
+        bounds.append((i, j))
+        j = i
+    bounds.reverse()
+    return [order[i:j] for i, j in bounds]
+
+
+def family_cv_grid_size_sharded(padded: PaddedPairs, kind,
+                                gammas: np.ndarray, cs: np.ndarray,
+                                n_epochs: int, devices=None) -> np.ndarray:
+    """(P, G, C) CV grid via size-sharded launches.
+
+    Pairs are partitioned by subset size (`shard_lane_layout`, one shard
+    per entry of ``devices``), each shard is trimmed to its own max and
+    runs as its own lanes launch on its device, and the results are
+    gathered back into the original pair order.  ``devices`` (None: [the
+    card]) may name one card more than once: each shard on a card runs on
+    its own CUDA stream, so small shards overlap, and the streams are
+    joined before the gather.
+
+    On one card the win is the padded-work saving: har12's size spread
+    makes the summed ``count * shard_max^2`` ~3.9x smaller at 8 shards
+    than the global pad.
+    """
+    devs = [resolve_device(d) for d in (devices if devices is not None
+                                        else [None])]
+    shards = shard_lane_layout(padded.n_true, len(devs))
+    g_host = np.asarray(gammas, np.float32)
+    c_host = np.asarray(cs, np.float32)
+    out = np.empty((padded.n_pairs, len(g_host), len(c_host)), np.float32)
+    kernels: dict[torch.device, object] = {}
+    pending = []
+    for shard_idx, dev in zip(shards, devs):
+        sub = padded.take([int(i) for i in shard_idx]).trim()
+        if dev not in kernels:
+            kernels[dev] = _training_kernel(kind, dev)
+        stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            f32 = dict(dtype=torch.float32, device=dev)
+            acc = _cv_grid_all_pairs(
+                *_pair_tensors(sub, dev), torch.as_tensor(g_host, **f32),
+                torch.as_tensor(c_host, **f32), kernels[dev], int(n_epochs))
+        pending.append((shard_idx, acc, stream))
+    for shard_idx, acc, stream in pending:
+        if stream is not None:
+            torch.cuda.current_stream(acc.device).wait_stream(stream)
+        out[np.asarray(shard_idx)] = acc.cpu().numpy()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Selection + model extraction (host-side)
 # ---------------------------------------------------------------------------
@@ -287,9 +489,7 @@ def _train_family(padded: PaddedPairs, kind, gammas: np.ndarray,
     """CV-grid + select + refit one family for every pair in ``padded``."""
     f32 = dict(dtype=torch.float32, device=device)
     acc, gi, ci, alphas = _family_program(
-        torch.as_tensor(padded.x, **f32), torch.as_tensor(padded.y, **f32),
-        torch.as_tensor(padded.fold_masks, **f32),
-        torch.as_tensor(padded.valid, **f32),
+        *_pair_tensors(padded, device),
         torch.as_tensor(np.asarray(gammas), **f32),
         torch.as_tensor(np.asarray(cs), **f32),
         _training_kernel(kind, device), int(cv_epochs), int(n_epochs))

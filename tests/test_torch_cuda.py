@@ -493,3 +493,74 @@ def test_streamed_peak_memory_is_flat_on_card(card, method):
         assert out["count"] == float(v)
     chunk_bytes = 4 * 512 * (sm.mismatch_dim + 3 * 64 * 12)
     assert abs(peaks[512 * 40] - peaks[512]) <= chunk_bytes, peaks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rbf", "hw"])
+def test_size_sharded_grid_on_one_card(card, kind):
+    """Three shards on one card, each on its own CUDA stream and each one
+    K2 launch, give the global grid within 1e-6."""
+    from repro_torch.core import trainer
+    from repro_torch.kernels import ops
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(300, 3)
+    y = rng.randint(0, 5, 300)
+    padded = trainer.pad_pairs(x, y, 5, n_folds=4, seed=0)
+    cs = np.array([1.0, 10.0])
+    if kind == "hw":
+        hw = trainer.default_hw(0)
+        kind, g = hw.kernel_response, trainer.hw_gamma_grid(hw, 2)
+    else:
+        g = np.array([0.5, 2.0])
+    want = trainer.family_cv_grid(padded, kind, g, cs, 15, device=card)
+    ops.reset_launches()
+    got = trainer.family_cv_grid_size_sharded(padded, kind, g, cs, 15,
+                                              devices=[card] * 3)
+    assert ops.launch_counts()["solver"] == 3
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+def _dag_classifiers(k=6):
+    """Linear, rbf and analog 'hw' pairs in turn, trained on the CPU."""
+    from repro_torch.core import analog, ovo, svm, trainer
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(300, 3)
+    y = rng.randint(0, k, 300)
+    hw = trainer.default_hw(0)
+    g_hw = float(trainer.hw_gamma_grid(hw)[3])
+    clfs = []
+    for pi, (ci, cj) in enumerate(ovo.class_pairs(k)):
+        mask = (y == ci) | (y == cj)
+        yy = np.where(y[mask] == ci, 1.0, -1.0)
+        kind = ("linear", "rbf", hw.kernel_response)[pi % 3]
+        m = svm.train_binary(x[mask], yy, kind,
+                             gamma=g_hw if pi % 3 == 2 else 2.0, c=1.0,
+                             n_epochs=40, device="cpu")
+        clfs.append(analog.AnalogBinaryClassifier.deploy(m, hw)
+                    if pi % 3 == 2 else ovo.FloatBitClassifier(m))
+    return clfs, rng.rand(500, 3)
+
+
+@pytest.mark.cuda
+def test_dag_labels_card_equal_cpu_off_ties(card):
+    """The DAG front on the card (gathers and step plans on the device, no
+    K1) gives the CPU machine's labels wherever every pair's score is off
+    ties, and ``decide_dag`` of the card's own dense bits."""
+    from repro_torch.api import compile_machine
+    from repro_torch.core import ovo
+    from repro_torch.kernels import ops
+
+    clfs, x = _dag_classifiers()
+    on_card = compile_machine(clfs, n_classes=6, decider="dag", device=card)
+    host = compile_machine(clfs, n_classes=6, decider="dag", device="cpu")
+    assert {b.kind for b in on_card._kernel_banks} == {"rbf", "hw"}
+    ops.reset_launches()
+    got = on_card.predict(x)
+    assert ops.launch_counts()["kernel_matrix"] == 0
+    clear = (np.abs(host.decision_scores(x)) > 1e-5).all(axis=1)
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(got[clear], host.predict(x)[clear])
+    np.testing.assert_array_equal(
+        got[clear], ovo.decide_dag(on_card.predict_bits(x), 6)[clear])
