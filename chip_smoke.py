@@ -74,6 +74,34 @@ Phases, in order; any failure exits nonzero before the result line:
    (rbf, gammas (0.5, 2), Cs (1, 10), 30 epochs) with ``devices=[card] *
    D`` for D in 1, 2, 4, 8, each equal to D = 1's within 1e-6, with its
    wall (best of 3), padded and true work units and lane units/s.
+11. Fleet serving (run after K1's checks, on the fits of phases 3 and 10,
+   nothing refitted): balance, seeds, vertebral and har12 co-batched into
+   one ``FleetMachine`` (P_total = 3 + 3 + 3 + 66 = 75), deployed as
+   ``rbf`` (K1) and as ``circuit`` (the measured curve), each with
+   ``decider="votes"`` and ``"dag"``. For each of the four fleets: its
+   scores and labels equal each member's bit for bit on the member's test
+   rows; its save is served by ``launch.serve_svm.main`` for each of
+   SERVE_SVM_RUNS (the reference's defaults: 4000 queries at 5000 q/s,
+   max_batch 256, max_wait_ms 2; 20,000 q/s; a closed loop of 1024
+   outstanding requests; the d = 1 serving mesh; the overload settings of
+   the launcher's docstring), every answered request equal to its member's
+   label off ties, K1 launched once per rbf bank per dispatch (votes
+   ``rbf`` fleet; 0 otherwise), with the ``ServingStats``, wall time, host
+   and device ms per dispatch per bucket and the device's idle share of a
+   traced window of TRACE_QUERIES queries. Then: K1 at a full dispatch of
+   the ``rbf`` fleet against its plain version; the engine's d = 1
+   serving mesh against the fleet's own labels program on the same rows
+   at every bucket height, bit for bit; the reference's overload test at
+   those overload settings (a burst of 8192 priority-0 and 1024
+   priority-1 requests against a dispatch slowed by 20 ms sheds only
+   priority 0); balance's streamed Monte-Carlo (4096 variants) through a
+   1-device variants mesh equal to the run without one bit for bit; its
+   rbf CV grid through a 1-device trainer mesh equal to the local grid bit
+   for bit in one K2 launch; the two grid layouts timed on balance and
+   har12.  The launch counters are zeroed just before each served window
+   (inside ``serve_svm.main``) and the trainer mesh's grid, and read just
+   after: K1 (serving) and K2 (the trainer's mesh leg) must both have
+   run, and the ``kernels`` line carries those counts alone.
 4. A small input (the 150-row balance subsample) fit on the card and with
    the plain versions on the CPU: the same kernel picks, (gamma, C),
    support sets and scores.
@@ -142,6 +170,23 @@ LADDER_SHARDS = (1, 2, 4, 8)
 HAR12_K2_SHORT_EPOCHS = 3
 #: har12 as phase 10 fits it: (train rows, features), test rows, classes.
 HAR12_SHAPE = ((4375, 5), 1875, 12)
+#: Phase 11's serving runs, each ``serve_svm.main`` on the saved fleet at
+#: the reference's defaults (4000 queries, 5000 q/s Poisson, max_batch 256,
+#: max_wait_ms 2) but for what a run changes: benchmarks/serving.py's rate,
+#: a closed loop, the d = 1 serving mesh and the overload settings of the
+#: launcher's docstring.
+SERVE_SVM_RUNS = {
+    "defaults": [],
+    "rate_20000": ["--rate", "20000"],
+    "closed_loop": ["--concurrency", "1024", "--n-queries", "16384",
+                    "--pipeline-depth", "2"],
+    "mesh_d1": ["--mesh-devices", "1"],
+    "overload": ["--deadline-ms", "25", "--priority-classes", "2",
+                 "--queue-bound", "2048", "--shed-expired",
+                 "--pipeline-depth", "2"],
+}
+#: Queries of each run's traced window (the device's idle share).
+TRACE_QUERIES = 1000
 
 
 def log(*args) -> None:
@@ -1352,6 +1397,304 @@ def scaleout_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: fleet serving
+# ---------------------------------------------------------------------------
+
+
+def fleet_tests(names) -> dict:
+    """Each fleet member's test rows (its query pool)."""
+    import numpy as np
+
+    from repro_torch.data import datasets
+
+    return {n: np.asarray(datasets.load(n).x_test, np.float32) for n in names}
+
+
+def fleet_bits_equal_members(fleet, machines: dict, tests: dict) -> None:
+    """Fleet against member, bit for bit: every member's scores (raw f32
+    bit patterns) and labels on its own test rows."""
+    import numpy as np
+
+    for name, m in machines.items():
+        x = tests[name]
+        if not np.array_equal(fleet.decision_scores(x, name).view(np.int32),
+                              m.decision_scores(x).view(np.int32)):
+            raise AssertionError(f"fleet scores of {name} != the member's")
+        if not np.array_equal(fleet.predict(x, name), m.predict(x)):
+            raise AssertionError(f"fleet labels of {name} != the member's")
+
+
+def serve_runs(path: str, dev, n_rbf_banks: int) -> dict:
+    """``serve_svm.main`` on the saved fleet for each of SERVE_SVM_RUNS,
+    its stdout kept out of the log; every answered request is checked
+    against its member off ties inside ``main``, and K1's launches in the
+    served traffic (``main`` zeroes the counters just before its served
+    window and reads them just after) must be one per rbf bank per
+    dispatch."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve_svm
+
+    runs = {}
+    for run, argv in SERVE_SVM_RUNS.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            s = serve_svm.main(
+                ["--fleet", path, "--device", str(dev),
+                 "--trace-queries", str(TRACE_QUERIES)] + argv)
+        k1 = s["launches"]["kernel_matrix"]
+        if k1 != n_rbf_banks * s["n_batches"]:
+            raise AssertionError(
+                f"{path} {run}: {k1} K1 launches for {s['n_batches']} "
+                f"dispatches of {n_rbf_banks} rbf banks")
+        s["k1_launches_per_dispatch"] = k1 / s["n_batches"]
+        runs[run] = s
+    return runs
+
+
+def dispatch_alone(fleet, tests: dict) -> dict:
+    """The fleet's labels program alone, outside the engine (main thread,
+    no other thread running): host ms per synchronized call at 32 and 256
+    mixed rows already on the card, and the device events (kernels and
+    copies) per call and their device ms at 256 rows (``torch.profiler``)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(3)
+    names = list(tests)
+    out = {}
+    for n in (32, 256):
+        ids = rng.randint(len(names), size=n)
+        x = np.zeros((n, fleet.n_features), np.float32)
+        for r, i in enumerate(ids):
+            pool = tests[names[i]]
+            x[r, :pool.shape[1]] = pool[rng.randint(len(pool))]
+        xd = torch.as_tensor(x, device=fleet.device)
+        idd = torch.as_tensor(ids.astype(np.int32), device=fleet.device)
+        call = lambda: fleet._labels(xd, idd)
+
+        def synced() -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        synced()
+        out[f"host_ms_{n}"] = float(np.median([synced() for _ in range(20)]))
+        if n == 256:
+            out["device_ms_256"], out["device_events_256"] = device_ms(
+                call, "", reps=5)
+    return out
+
+
+def mesh_d1_equals_unsharded(fleet, tests: dict) -> dict:
+    """The engine's d = 1 serving mesh (pinned slots, its stream, events)
+    against the fleet's own labels program called on the same rows on the
+    card, one staged batch per bucket height (mixed members, zero-padded
+    features): labels bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import SVMEngine
+
+    eng = SVMEngine(fleet, max_batch=256, mesh=make_serving_mesh(1))
+    eng._order_after_banks()
+    rng = np.random.RandomState(11)
+    names = list(tests)
+    for b in eng.policy.buckets:
+        ids = rng.randint(len(names), size=b).astype(np.int32)
+        x = np.zeros((b, fleet.n_features), np.float32)
+        for r, i in enumerate(ids):
+            pool = tests[names[i]]
+            x[r, :pool.shape[1]] = pool[rng.randint(len(pool))]
+        slot = eng._make_slot(b)
+        slot.xv[:] = x
+        slot.iv[:] = ids
+        for launch in eng._forward(slot):
+            launch.wait()
+        want = fleet._labels(torch.as_tensor(x, device=fleet.device),
+                             torch.as_tensor(ids, device=fleet.device))
+        if not np.array_equal(slot.ov, want.cpu().numpy()):
+            raise AssertionError(f"d = 1 mesh != the fleet's labels at "
+                                 f"bucket {b}")
+    return {"buckets": list(eng.policy.buckets), "bit_equal": True}
+
+
+def overload_burst(fleet, tests: dict) -> dict:
+    """tests/test_serving_svm.py::test_overload_burst_sheds_only_lowest_
+    priority at the launcher's overload settings (max_batch 256,
+    queue_bound 2048, shed_expired, pipeline_depth 2) against a device
+    slowed by 20 ms per dispatch: a burst of 8192 priority-0 requests then
+    1024 priority-1 (below the bound) sheds some priority-0 work and none
+    of priority 1, and every answered request gets its member's label."""
+    import numpy as np
+
+    from repro_torch.serving import ShedError, SVMEngine
+
+    name = next(iter(tests))
+    m = fleet.member(name)
+    xs = tests[name]
+    x = xs[int(np.argmax(np.abs(m.decision_scores(xs)).min(axis=1)))]
+    want = int(m.predict(x[None])[0]) if fleet.decider == m.decider else \
+        int(fleet.predict(x[None], name)[0])
+    eng = SVMEngine(fleet, max_batch=256, queue_bound=2048,
+                    shed_expired=True, pipeline_depth=2)
+    orig = eng._forward
+
+    def slowed(slot):
+        time.sleep(0.02)
+        return orig(slot)
+
+    eng._forward = slowed
+    with eng:
+        eng.warmup()
+        lo = [eng.submit(x, name, priority=0) for _ in range(8192)]
+        hi = [eng.submit(x, name, priority=1) for _ in range(1024)]
+        shed = {0: 0, 1: 0}
+        for prio, futs in ((0, lo), (1, hi)):
+            for f in futs:
+                try:
+                    if f.result(timeout=120.0) != want:
+                        raise AssertionError("overload: wrong label")
+                except ShedError:
+                    shed[prio] += 1
+    if shed[0] == 0 or shed[1] != 0:
+        raise AssertionError(f"overload burst shed {shed} (want some of "
+                             "priority 0 and none of priority 1)")
+    return {"shed_by_priority": shed, "stats": eng.stats.summary()}
+
+
+def k1_fleet_dispatch(fleet, tests: dict) -> dict:
+    """K1 at a full dispatch of the rbf fleet: each member's rbf banks on
+    256 rows of its test set (ADC-quantized as the bank reads them)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import quant
+
+    rows = []
+    for name, m in zip(fleet.model_ids, fleet._members):
+        xs = tests[name]
+        x = torch.as_tensor(np.resize(xs, (256, xs.shape[1])),
+                            device=fleet.device)
+        for bank in m._kernel_banks:
+            if bank.kind != "rbf":
+                continue
+            xv = x if bank.input_bits == 0 else quant.quantize_unit(
+                x, bank.input_bits)
+            rows.append(k1_row(f"fleet/{name}", bank.kind, xv, bank.sv,
+                               bank.gamma))
+    return dict(shape=[r["shape"] for r in rows],
+                launches_per_dispatch=len(rows),
+                ms=sum(r["ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=sum(r["bound_ms"] for r in rows),
+                max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+def mc_and_trainer_mesh_d1(est, dev, har12_padded) -> dict:
+    """Balance's streamed Monte-Carlo (iid, 4096 variants in chunks of
+    1024 on 64 test rows) through ``make_variant_mesh(1)`` and without (the
+    machine's own device alone): bit for bit (the reference test's
+    tolerance, atol 1e-5, is the weaker claim).  Balance's rbf CV grid at
+    the fit's settings through ``make_trainer_mesh(1)``: bit for bit
+    against the local grid, and one K2 launch, counted with the counters
+    zeroed just before that call and read just after.  Then the two grid
+    layouts timed (best of 3) on balance and on har12's rbf grid, the
+    fit's own widths: the local grid keeps one copy of each pair's rows
+    for all its gammas, the mesh leg one per (pair, gamma) cell."""
+    import numpy as np
+
+    from repro_torch.core import dse, trainer
+    from repro_torch.data import datasets
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_trainer_mesh, make_variant_mesh
+
+    ds = datasets.load("balance")
+    a = dse.assignment_from_kernel_map(est.kernel_map_)[None, :]
+    sm = est.stream_machine(0, method="iid", mc_chunk=1024)
+    xq, yq = ds.x_test[:64], ds.y_test[:64]
+    out = {key: sm.stream(xq, yq, a, n_variants=4096, accuracy_floor=0.8,
+                          mesh=mesh)
+           for key, mesh in (("local", None), ("mesh1", make_variant_mesh(1)))}
+    for k in ("mean", "std", "worst", "best", "yield", "hist"):
+        if not np.array_equal(out["mesh1"][k], out["local"][k]):
+            raise AssertionError(f"stream(mesh=1) {k} != stream()")
+    padded = trainer.pad_pairs(ds.x_train, ds.y_train, ds.n_classes,
+                               n_folds=5, seed=0)
+    grids = {"balance": padded, "har12": har12_padded}
+    rbf = ("rbf", trainer.DEFAULT_RBF_GAMMAS, trainer.DEFAULT_CS, 100)
+    local = trainer.family_cv_grid(padded, *rbf, device=dev)
+    mesh1 = make_trainer_mesh(1)
+    ops.reset_launches()
+    sharded = trainer.family_cv_grid(padded, *rbf, mesh=mesh1)
+    k2 = ops.launch_counts()["solver"]
+    if k2 != 1 or not np.array_equal(sharded, local):
+        raise AssertionError(f"family_cv_grid(mesh=1): {k2} K2 launches, "
+                             f"max |diff| {np.abs(sharded - local).max()}")
+    layouts = {}
+    for name, pp in grids.items():
+        lo_s, lo_walls, lo = best_wall_s(
+            lambda pp=pp: trainer.family_cv_grid(pp, *rbf, device=dev))
+        sh_s, sh_walls, sh = best_wall_s(
+            lambda pp=pp: trainer.family_cv_grid(pp, *rbf, mesh=mesh1))
+        layouts[name] = dict(
+            shape=[pp.n_pairs, len(rbf[1]), len(rbf[2]), pp.n_max],
+            local_s=lo_s, mesh1_s=sh_s, local_walls=lo_walls,
+            mesh1_walls=sh_walls, max_abs_diff=float(np.abs(sh - lo).max()))
+    return dict(stream_mean=float(out["local"]["mean"][0]),
+                stream_yield=float(out["local"]["yield"][0]),
+                cv_grid_mesh1_k2_launches=k2, bit_equal=True,
+                cv_grid_layouts=layouts)
+
+
+def fleet_phase(dev, fits: dict, har12_padded) -> dict:
+    """Phase 11: the four fitted machines (balance, seeds, vertebral at the
+    estimator's defaults, har12 on its full split) co-batched into one
+    fleet, deployed as ``rbf`` (K1) and ``circuit`` (the measured curve),
+    each with ``decider="votes"`` and ``"dag"``."""
+    import tempfile
+
+    from repro_torch.api import compile_fleet
+
+    tests = fleet_tests(fits)
+    configs, k1_dispatch, burst, mesh_check = [], None, None, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for target in ("rbf", "circuit"):
+            for decider in ("votes", "dag"):
+                machines = {n: est.deploy(target, decider=decider)
+                            for n, est in fits.items()}
+                fleet = compile_fleet(machines, decider=decider)
+                fleet_bits_equal_members(fleet, machines, tests)
+                n_rbf = sum(b.kind == "rbf" for m in machines.values()
+                            for b in m._kernel_banks) \
+                    if decider == "votes" else 0
+                path = f"{tmp}/{target}_{decider}"
+                fleet.save(path)
+                runs = serve_runs(path, dev, n_rbf)
+                row = dict(target=target, decider=decider,
+                           p_total=fleet.n_pairs_total,
+                           d_max=fleet.n_features, rbf_banks=n_rbf,
+                           alone=dispatch_alone(fleet, tests), runs=runs)
+                log("FLEET", json.dumps(row))
+                configs.append(row)
+                if (target, decider) == ("rbf", "votes"):
+                    k1_dispatch = k1_fleet_dispatch(fleet, tests)
+                if (target, decider) == ("circuit", "votes"):
+                    mesh_check = mesh_d1_equals_unsharded(fleet, tests)
+                    burst = overload_burst(fleet, tests)
+                    log("OVERLOAD", json.dumps(burst))
+    if configs[0]["p_total"] != 75:
+        raise AssertionError(f"fleet P_total {configs[0]['p_total']} != 75")
+    legs = mc_and_trainer_mesh_d1(fits["balance"], dev, har12_padded)
+    log("MESH_D1", json.dumps(dict(serving=mesh_check, **legs)))
+    return dict(configs=configs, k1_fleet_dispatch=k1_dispatch,
+                overload=burst, mesh_d1=dict(serving=mesh_check, **legs))
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the card against the plain versions on a small input
 # ---------------------------------------------------------------------------
 
@@ -1874,7 +2217,21 @@ def main() -> int:
     k2_rows += check_k2_har12(dev, har12, padded)
 
     k1, k1_rows = check_k1(dev, {**fitted, "har12": har12})
-    del har12
+
+    t0 = time.perf_counter()
+    serving = fleet_phase(dev, {**fitted, "har12": har12}, padded)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    # Each served window and the trainer's mesh leg zero the counters just
+    # before they run and read them just after.
+    served = {f"{c['target']}_{c['decider']}/{run}":
+              s["launches"]["kernel_matrix"]
+              for c in serving["configs"] for run, s in c["runs"].items()}
+    mesh_k2 = serving["mesh_d1"]["cv_grid_mesh1_k2_launches"]
+    log("K1 launches in each served window:", json.dumps(served))
+    if sum(served.values()) < 1 or mesh_k2 < 1:
+        raise AssertionError(f"a kernel did not run on the fleet serving "
+                             f"path: K1 {served}, K2 {mesh_k2}")
+    del har12, padded
 
     check_small_input(dev)
 
@@ -1912,7 +2269,9 @@ def main() -> int:
              har12_banks={r["name"]: {key: r[key] for key in (
                  "shape", "ms", "plain_ms", "bound_ms", "max_abs_err")}
                  for r in k1_rows if r["name"] in ("har12/rbf",
-                                                   "har12/rbf_float")}),
+                                                   "har12/rbf_float")},
+             fleet_dispatch=dict(serving["k1_fleet_dispatch"],
+                                 served_launches=sum(served.values()))),
         dict(name="solver", route="cuda",
              source="src/repro_torch/kernels/csrc/solver.cu",
              replaces="src/repro/kernels/solver.py:126",
@@ -1922,6 +2281,7 @@ def main() -> int:
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None, shape=k2["shape"],
              har12_fit_launches=scale["fit_launches"]["solver"],
+             trainer_mesh_launches=mesh_k2,
              har12_fit_lanes={
                  f"{r['name']}/{r['kind']}/{r['epochs']}": {
                      key: r[key] for key in (

@@ -19,6 +19,11 @@ blocks re-exported: :func:`compile_candidates` / :class:`CandidateMachine`
 variant 0 nominal) and the flat-memory :func:`compile_mc_stream` /
 :class:`StreamingMCMachine`; :meth:`MixedKernelSVM.monte_carlo` returns a
 :class:`MonteCarloResult` or :class:`StreamingMCResult`.
+
+Serving: :func:`compile_fleet` co-batches compiled machines into one
+:class:`FleetMachine` (one forward for rows of any mix of members, each
+member's scores bit for bit), and :class:`ShardedFleetForward` splits its
+labels over a ``launch.mesh.make_serving_mesh`` mesh.
 """
 from repro_torch.api.compiled import (
     CandidateMachine,
@@ -37,15 +42,21 @@ from repro_torch.api.estimator import (
     StreamingMCResult,
     estimator_from_arrays,
 )
+from repro_torch.api.fleet import (
+    FleetMachine,
+    ShardedFleetForward,
+    compile_fleet,
+)
 from repro_torch.core.analog import CircuitParams, VariantSet
 from repro_torch.core.dse import DesignSpace, SweepResult
 from repro_torch.core.trainer import PaddedPairs, PairResult, pad_pairs, train_pairs
 
 __all__ = [
     "CandidateMachine", "CircuitParams", "CompiledMachine", "DesignSpace",
-    "MixedKernelSVM", "MonteCarloMachine", "MonteCarloResult",
-    "PaddedPairs", "PairResult", "StreamingMCMachine", "StreamingMCResult",
-    "SweepResult", "VariantSet", "compile_candidates", "compile_machine",
+    "FleetMachine", "MixedKernelSVM", "MonteCarloMachine", "MonteCarloResult",
+    "PaddedPairs", "PairResult", "ShardedFleetForward", "StreamingMCMachine",
+    "StreamingMCResult", "SweepResult", "VariantSet", "compile_candidates",
+    "compile_fleet", "compile_machine",
     "compile_mc_stream", "compile_variants", "estimator_from_arrays",
     "machine_from_arrays", "pad_pairs", "train_pairs",
 ]

@@ -45,6 +45,7 @@ banks (plain-torch measured-curve interpolation).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 from typing import Optional, Sequence
@@ -73,8 +74,13 @@ from repro_torch.core.ovo import (
     pair_index_matrix,
 )
 from repro_torch.core.svm import SVMModel
-from repro_torch.device import resolve_device
+from repro_torch.device import device_key, resolve_device
 from repro_torch.kernels import ops, ref
+from repro_torch.launch.mesh import (
+    VARIANTS_AXIS,
+    make_variant_mesh,
+    require_axis,
+)
 
 _FORMAT_VERSION = 1
 _FORMAT = "repro.api.CompiledMachine"
@@ -283,6 +289,22 @@ class _KernelBank:
             left=s0.left, right=s0.right,
             **kern._grid_fast_path(s0.grid),
         )
+
+
+def _to_device(obj, device: torch.device):
+    """A bank (or stream constants) dataclass with every tensor field on
+    ``device``; the object itself when nothing moves."""
+    moved = {f.name: v.to(device) for f in dataclasses.fields(obj)
+             if isinstance(v := getattr(obj, f.name), torch.Tensor)
+             and device_key(v.device) != device_key(device)}
+    return dataclasses.replace(obj, **moved) if moved else obj
+
+
+def _device_context(device: torch.device):
+    """``device`` as the current card while work is enqueued on it (a
+    no-op for the CPU)."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
 
 
 def _kernel_group_key(s: _KernelSpec):
@@ -727,6 +749,17 @@ class CompiledMachine:
         return _dag_labels(x, self.n_classes, self._pair_matrix,
                            self._linear_banks, self._kernel_banks,
                            self._row_maps, self._step_plans)
+
+    def to(self, device) -> "CompiledMachine":
+        """This machine with its banks on ``device`` (itself if they are
+        there already)."""
+        dev = resolve_device(device)
+        if device_key(dev) == device_key(self.device):
+            return self
+        return CompiledMachine(
+            self.n_classes, [_to_device(b, dev) for b in self._linear_banks],
+            [_to_device(b, dev) for b in self._kernel_banks],
+            kernel_map=self.kernel_map, decider=self.decider, device=dev)
 
     def _as_input(self, x) -> torch.Tensor:
         return _as_input(x, self.device, self.n_features)
@@ -1332,8 +1365,11 @@ class StreamingMCMachine:
     The step's shapes depend on ``mc_chunk`` and the assignment matrix,
     never on V, so peak memory is flat from V = 64 to V = 10^6.  With
     ``method='is'`` draws are widened by ``is_scale`` and carry
-    self-normalized importance weights.  ``stream(mesh=...)`` (sharding the
-    chunk over several cards) waits for queue A9 (``launch/mesh.py``).
+    self-normalized importance weights.  ``stream(mesh=...)`` splits each
+    chunk over a ``launch.mesh.make_variant_mesh`` mesh: every device draws
+    and scores its slice (the draws are functions of the global variant
+    index, wherever it lands), and the slices' aggregates merge on the
+    mesh's first device, which holds the state.
     """
 
     def __init__(self, n_classes: int, linear_banks, kernel_banks,
@@ -1378,6 +1414,7 @@ class StreamingMCMachine:
         if method in ("sobol", "stratified"):
             self._sampler = mcstream.QMCSampler(
                 method, self.mismatch_dim, self.key_data)
+        self._replicas: dict = {}
 
     # -- chunk generation -----------------------------------------------------
 
@@ -1488,6 +1525,70 @@ class StreamingMCMachine:
                 f"{self.n_pairs}")
         return x, y, torch.as_tensor(a, device=self.device)
 
+    def _chunk_size(self, mesh=None) -> int:
+        """Variants per chunk: ``mc_chunk``, rounded up to whole
+        per-device slices under a mesh (the validity mask keeps the padded
+        tail inert)."""
+        b = self.mc_chunk
+        if mesh is not None:
+            nd = require_axis(mesh, VARIANTS_AXIS, "make_variant_mesh")
+            b = -(-b // nd) * nd
+        return b
+
+    def _replica(self, device) -> "StreamingMCMachine":
+        """This machine with its banks and draw constants on ``device``
+        (itself where they are already), cached per device."""
+        dev = device_key(device)
+        if dev == device_key(self.device):
+            return self
+        if dev not in self._replicas:
+            self._replicas[dev] = StreamingMCMachine(
+                self.n_classes,
+                [_to_device(b, dev) for b in self._linear_banks],
+                [_to_device(b, dev) for b in self._kernel_banks],
+                [None if c is None else _to_device(c, dev)
+                 for c in self._stream_consts],
+                method=self.method, mc_chunk=self.mc_chunk,
+                sigma_scale=self.sigma_scale, is_scale=self.is_scale,
+                key_data=self.key_data, device=dev)
+        return self._replicas[dev]
+
+    def _stream_sharded(self, x, y, assignments, n_variants: int,
+                        floor: float, mesh):
+        """The chunk loop over a variants mesh (one device: the unsharded
+        stream): device ``i`` scores global variants ``[start + i*per,
+        start + (i+1)*per)`` of each chunk on its replica; the slices'
+        aggregates (centered on the one running mean) merge on the first
+        device, as the reference's psum / pmin / pmax merge them."""
+        b = self._chunk_size(mesh)
+        per = b // mesh.size
+        shards = [self._replica(dev) for dev in mesh.devices]
+        inputs = [m._prep(x, y, assignments) for m in shards]
+        home = shards[0].device
+        n_s, n_val = int(inputs[0][2].shape[0]), int(inputs[0][0].shape[0])
+        state = mcstream.init_stream(n_s, mcstream.hist_bins(n_val), home)
+        n_bins = state.hist.shape[1]
+        for start in range(0, n_variants, b):
+            u = None if self._sampler is None else \
+                self._sampler.chunk(start, b)
+            aggs = []
+            for i, (m, (xd, yd, ad)) in enumerate(zip(shards, inputs)):
+                dev, lo = m.device, start + i * per
+                with _device_context(dev):
+                    v_idx = torch.arange(lo, lo + per, device=dev)
+                    valid = (v_idx < n_variants).to(torch.float32)
+                    ud = torch.zeros((per, 0), dtype=torch.float32,
+                                     device=dev) if u is None else \
+                        torch.as_tensor(u[i * per:(i + 1) * per], device=dev)
+                    acc, w, log_ref = m._chunk_acc(xd, v_idx, ad, yd, ud)
+                    agg = mcstream.chunk_aggregates(
+                        state.mean.to(dev), acc, w, valid, floor, n_bins,
+                        log_ref=log_ref)
+                aggs.append(_to_device(agg, home))
+            state = mcstream.merge_stream(state,
+                                          mcstream.merge_aggregates(aggs))
+        return state
+
     def stream(self, x, y, assignments, n_variants: int,
                accuracy_floor: float, mesh=None,
                confidence: float = mcstream.DEFAULT_CONFIDENCE,
@@ -1495,27 +1596,19 @@ class StreamingMCMachine:
         """Stream ``n_variants`` mismatch instances chunk by chunk and
         return ``mcstream.finalize``'s statistics dict (per-assignment mean
         / std / worst / yield + binomial bounds, and the raw histogram
-        sketch under ``"hist"``)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "stream(mesh=...) shards the variant chunks over several "
-                "cards; it waits for the port of launch/mesh.py (ROADMAP "
-                "queue A9)")
+        sketch under ``"hist"``).
+
+        ``mesh``: a ``make_variant_mesh`` mesh splits each chunk's variants
+        across its devices (the chunk rounds up to whole per-device slices;
+        the validity mask keeps the padded tail inert).  Without one the
+        machine's own device streams every chunk alone.
+        """
         if n_variants < 1:
             raise ValueError(f"n_variants must be >= 1, got {n_variants}")
-        x, y, a = self._prep(x, y, assignments)
-        b = self.mc_chunk
-        state = mcstream.init_stream(int(a.shape[0]),
-                                     mcstream.hist_bins(int(x.shape[0])),
-                                     self.device)
-        for start in range(0, n_variants, b):
-            v_idx = torch.arange(start, start + b, device=self.device)
-            valid = (v_idx < n_variants).to(torch.float32)
-            acc, w, log_ref = self._chunk_acc(x, v_idx, a, y,
-                                              self._uniforms(start, b))
-            state = mcstream.update_stream(state, acc, w, valid,
-                                           float(accuracy_floor),
-                                           log_ref=log_ref)
+        if mesh is None:
+            mesh = make_variant_mesh(devices=[self.device])
+        state = self._stream_sharded(x, y, assignments, n_variants,
+                                     float(accuracy_floor), mesh)
         out = mcstream.finalize(state, confidence, ci)
         out["hist"] = state.hist.cpu().numpy().astype(np.float64)
         out["n_variants"] = int(n_variants)

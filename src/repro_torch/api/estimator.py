@@ -67,7 +67,7 @@ from repro_torch.core.analog import (
 )
 from repro_torch.core.ovo import DigitalLinearClassifier, MulticlassSVM
 from repro_torch.core.svm import SVMModel
-from repro_torch.device import resolve_device
+from repro_torch.device import mesh_device
 
 _FORMAT_VERSION = 3
 _FORMAT = "repro.api.MixedKernelSVM"
@@ -166,8 +166,10 @@ class MixedKernelSVM:
     calibrated from the circuit surrogate with ``seed`` (deterministic, and
     therefore serializable).  ``hw_offsets = (gauss (4,), alpha (2,))``
     gives that default core's mismatch draws explicitly (see
-    ``trainer.default_hw``).  ``device`` (None: the card) runs training and
-    the deployed machines.
+    ``trainer.default_hw``).  ``device`` (None: the card, or the first
+    device of ``mesh``) runs training and the deployed machines.  ``mesh``
+    (``launch.mesh.make_trainer_mesh``) splits the fit's CV grids over its
+    devices; like ``hw`` it is runtime-only and not saved.
     """
 
     def __init__(
@@ -184,6 +186,7 @@ class MixedKernelSVM:
         circuit: Optional[CircuitParams] = None,
         hw_offsets=None,
         device=None,
+        mesh=None,
     ):
         self.weight_bits = weight_bits
         self.input_bits = input_bits
@@ -198,7 +201,8 @@ class MixedKernelSVM:
         # Circuit-parameter overrides for the analog behavioral model.
         self.circuit = circuit
         self.hw_offsets = hw_offsets
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(device, mesh)
         self._custom_hw = hw is not None
         self.hw_ = hw
         self.pairs_: Optional[list[selection.PairResult]] = None
@@ -236,7 +240,7 @@ class MixedKernelSVM:
             np.asarray(x), y, self.n_classes_, hw=self.hw_,
             n_epochs=self.n_epochs, seed=self.seed,
             tie_margin=self.tie_margin, cv_epochs=self.cv_epochs,
-            hw_all=self.hw_all, device=self.device)
+            hw_all=self.hw_all, device=self.device, mesh=self.mesh)
         self.assignment_ = None
         self.pareto_ = None
         self.mc_state_ = None
@@ -497,7 +501,9 @@ class MixedKernelSVM:
         :data:`STREAM_AUTO_VARIANTS`): chunks of ``mc_chunk`` variants
         folded into fixed-size accumulators, a :class:`StreamingMCResult`
         with yield bounds against ``accuracy_floor`` (default two points
-        below the nominal circuit accuracy).  ``mesh`` waits for queue A9.
+        below the nominal circuit accuracy).  ``mesh`` (from
+        :func:`repro_torch.launch.mesh.make_variant_mesh`) shards each
+        chunk's variants across its devices (streaming engine).
         """
         self._check_fitted()
         if key is None:

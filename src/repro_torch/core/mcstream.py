@@ -11,7 +11,9 @@ the next chunk, so peak memory depends on the chunk size only, never on V.
 * :func:`chunk_aggregates` reduces one ``(B, S)`` accuracy chunk to sums
   relative to the running mean, linear in the variant axis;
   :func:`merge_stream` is Chan's parallel Welford merge of one aggregate
-  into the state; :func:`update_stream` is both.
+  into the state; :func:`update_stream` is both.  Under a variants mesh
+  each device reduces its slice of the chunk and :func:`merge_aggregates`
+  joins the slices before the merge.
 * Every accumulator is weighted (``w = 1`` for iid / QMC sampling,
   self-normalized importance weights for ``method='is'``); ``finalize``
   reports the effective sample size ``(Σw)² / Σw²``, the n that enters the
@@ -171,6 +173,40 @@ def merge_stream(state: StreamStats, agg: ChunkAgg) -> StreamStats:
         amin=torch.minimum(state.amin, agg.amin),
         amax=torch.maximum(state.amax, agg.amax),
         hist=fs * state.hist + fc * agg.hist,
+        log_ref=ref)
+
+
+def merge_aggregates(aggs: list) -> ChunkAgg:
+    """The aggregates of one chunk's device slices as one aggregate (all on
+    one device): the reference's psum / pmin / pmax over the variants axis.
+    Each slice's sums are first scaled to the largest ``log_ref``; where the
+    scales agree (every non-IS method) the factor is the literal 1.0, so a
+    single slice passes through bit for bit."""
+    ref = aggs[0].log_ref
+    for a in aggs[1:]:
+        ref = torch.maximum(ref, a.log_ref)
+    one = torch.ones((), dtype=torch.float32, device=ref.device)
+    fs = [torch.where(a.log_ref == ref, one, torch.exp(a.log_ref - ref))
+          for a in aggs]
+
+    def total(vals):
+        out = vals[0]
+        for v in vals[1:]:
+            out = out + v
+        return out
+
+    amin, amax = aggs[0].amin, aggs[0].amax
+    for a in aggs[1:]:
+        amin, amax = torch.minimum(amin, a.amin), torch.maximum(amax, a.amax)
+    return ChunkAgg(
+        n_c=total([a.n_c for a in aggs]),
+        w_c=total([f * a.w_c for f, a in zip(fs, aggs)]),
+        w2_c=total([f * f * a.w2_c for f, a in zip(fs, aggs)]),
+        s1=total([f * a.s1 for f, a in zip(fs, aggs)]),
+        s2=total([f * a.s2 for f, a in zip(fs, aggs)]),
+        exceed=total([f * a.exceed for f, a in zip(fs, aggs)]),
+        amin=amin, amax=amax,
+        hist=total([f * a.hist for f, a in zip(fs, aggs)]),
         log_ref=ref)
 
 

@@ -61,8 +61,12 @@ def train_pairs(
     n_folds: int = 5,
     hw_all: bool = False,
     device=None,
+    mesh=None,
 ) -> list[PairResult]:
     """Run Algorithm 1: one PairResult per OvO pair (batched engine).
+
+    ``mesh`` (``launch.mesh.make_trainer_mesh``) optionally splits the CV
+    grids over its devices (see ``trainer.train_pairs``).
 
     ``tie_margin`` realizes line 8's "RBF only when strictly better" under
     finite-sample CV accuracy.  RBF-assigned pairs are co-optimized for the
@@ -73,7 +77,7 @@ def train_pairs(
     return trainer_mod.train_pairs(
         x_train, y_train, n_classes, hw=hw, n_epochs=n_epochs, seed=seed,
         tie_margin=tie_margin, cv_epochs=cv_epochs, n_folds=n_folds,
-        hw_all=hw_all, device=device)
+        hw_all=hw_all, device=device, mesh=mesh)
 
 
 def train_pairs_sequential(

@@ -24,8 +24,12 @@ The stored Grams of the hardware-in-the-loop family are gated by
 per gamma (``_seq_gamma``), so one gamma's Grams are live at a time.  For
 K >= 10 the size-sharded layout (``shard_lane_layout``,
 ``family_cv_grid_size_sharded``) trims each shard of pairs to its own
-largest subset and runs it as its own launch, on its own CUDA stream.  The
-reference's mesh layout (``_cv_grid_sharded``) waits for a later slice.
+largest subset and runs it as its own launch, on its own CUDA stream.
+
+**Scaling out** (``mesh=``): the CV grid optionally splits its flattened
+(pair x gamma) cells over a ``launch.mesh.make_trainer_mesh`` mesh
+(``_cv_grid_sharded``, axis :data:`PAIRGRID_AXIS`): each device runs its
+share as one lanes launch, and no device waits for another.
 """
 from __future__ import annotations
 
@@ -41,8 +45,10 @@ from repro_torch.core import svm as svm_mod
 from repro_torch.core.analog import AnalogRBFModel, CircuitParams
 from repro_torch.core.ovo import class_pairs
 from repro_torch.core.svm import SVMModel
-from repro_torch.device import resolve_device
+from repro_torch.device import device_key, mesh_device, resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.mesh import require_axis
 
 #: fit_best's hyper-parameter grid defaults (paper Sec. V-A2).
 DEFAULT_CS = np.logspace(-1, 3, 7)
@@ -320,29 +326,17 @@ def _refit_all_pairs(x, y, valid, gamma_sel, c_sel, kind,
     return alpha[:, 0, 0]
 
 
-def _family_program(x, y, fold_masks, valid, gammas, cs, kind, cv_epochs,
-                    n_epochs):
-    """The whole family: CV grid -> argmax -> full refit.
-
-    Returns ``(acc (P, G, C), gi (P,), ci (P,), alpha (P, n))``; the argmax
-    is the first maximum over the gamma-major flattened grid.
-    """
-    n_c = cs.shape[0]
-    acc = _cv_grid_all_pairs(x, y, fold_masks, valid, gammas, cs, kind,
-                             cv_epochs)
-    flat = torch.argmax(acc.reshape(acc.shape[0], -1), dim=1)
-    gi, ci = flat // n_c, flat % n_c
-    alpha = _refit_all_pairs(x, y, valid, gammas[gi], cs[ci], kind, n_epochs)
-    return acc, gi, ci, alpha
-
-
 def family_cv_grid(padded: PaddedPairs, kind, gammas: np.ndarray,
-                   cs: np.ndarray, n_epochs: int, device=None) -> np.ndarray:
+                   cs: np.ndarray, n_epochs: int, device=None,
+                   mesh=None) -> np.ndarray:
     """CV-accuracy tensor ``(P, |gammas|, |cs|)`` for one kernel family.
 
     ``kind`` is a kernel name or a callable (hardware-in-the-loop); the
-    grid runs on ``device`` (None: the card).
+    grid runs on ``device`` (None: the card), or with a ``mesh`` split
+    over the mesh's devices by (pair, gamma) cell (``_cv_grid_sharded``).
     """
+    if mesh is not None:
+        return _cv_grid_sharded(padded, kind, gammas, cs, n_epochs, mesh)
     dev = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=dev)
     return _cv_grid_all_pairs(
@@ -362,6 +356,76 @@ def family_refit(padded: PaddedPairs, kind, gamma_sel: np.ndarray,
         x, y, valid, torch.as_tensor(np.asarray(gamma_sel), **f32),
         torch.as_tensor(np.asarray(c_sel), **f32),
         _training_kernel(kind, dev), int(n_epochs)).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# The mesh leg: the pair x gamma cells across devices
+# ---------------------------------------------------------------------------
+
+#: Mesh axis the sharded CV grid distributes over.
+PAIRGRID_AXIS = mesh_mod.PAIRGRID_AXIS
+
+
+def _cv_grid_sharded(padded: PaddedPairs, kind, gammas, cs, n_epochs: int,
+                     mesh) -> np.ndarray:
+    """The same (P, G, C) CV grid, split over flattened (pair, gamma) cells.
+
+    Each cell is independent, so the cells (pair-major, as the output
+    reshapes) are padded with repeats of cell 0 up to a multiple of the
+    device count and split into one contiguous share per device.  A share
+    runs as the lanes of ``(cells, 1, C*F)`` through the solver (one
+    launch on a card; a callable kernel's share in pieces whose stored
+    Grams stay under :data:`CV_GRID_VMAP_BYTES`), each device on its own
+    stream; the padded outputs are dropped.
+    """
+    n_dev = require_axis(mesh, PAIRGRID_AXIS, "make_trainer_mesh")
+    g_host = np.asarray(gammas, np.float32)
+    c_host = np.asarray(cs, np.float32)
+    p, g = padded.n_pairs, len(g_host)
+    total = p * g
+
+    def rep(a):  # (P, ...) -> (P*G, ...), pair-major like the output
+        return np.repeat(a, g, axis=0)
+
+    cells = [rep(padded.x), rep(padded.y), rep(padded.fold_masks),
+             rep(padded.valid), np.tile(g_host, p)]
+    n_pad = (-total) % n_dev
+    if n_pad:
+        cells = [np.concatenate([a] + [a[:1]] * n_pad) for a in cells]
+    per = (total + n_pad) // n_dev
+    n = padded.n_max
+    step = per
+    if not isinstance(kind, str):
+        step = max(1, min(per, CV_GRID_VMAP_BYTES // (n * n * 4)))
+    kernels: dict = {}
+    pending = []
+    for i, dev in enumerate(mesh.devices):
+        key = device_key(dev)
+        if key not in kernels:
+            kernels[key] = _training_kernel(kind, dev)
+        stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+        f32 = dict(dtype=torch.float32, device=dev)
+        parts = []
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            c_dev = torch.as_tensor(c_host, **f32)
+            for lo in range(i * per, (i + 1) * per, step):
+                hi = min(lo + step, (i + 1) * per)
+                xs, ys, fs, vs, gs = (
+                    torch.as_tensor(np.ascontiguousarray(a[lo:hi]), **f32)
+                    for a in cells)
+                parts.append(svm_mod.cv_lanes_accuracy(
+                    xs, ys, fs, vs, gs[:, None], c_dev, kernels[key],
+                    int(n_epochs))[:, 0, :])
+        pending.append((parts, stream))
+    out = []
+    for parts, stream in pending:
+        if stream is not None:
+            torch.cuda.current_stream(parts[0].device).wait_stream(stream)
+        out.extend(part.cpu().numpy() for part in parts)
+    return np.concatenate(out)[:total].reshape(p, g, len(c_host))
 
 
 # ---------------------------------------------------------------------------
@@ -485,17 +549,17 @@ _extract_model = svm_mod._extract
 
 def _train_family(padded: PaddedPairs, kind, gammas: np.ndarray,
                   cs: np.ndarray, n_epochs: int, cv_epochs: int,
-                  device: torch.device) -> tuple[list[SVMModel], list[float]]:
-    """CV-grid + select + refit one family for every pair in ``padded``."""
-    f32 = dict(dtype=torch.float32, device=device)
-    acc, gi, ci, alphas = _family_program(
-        *_pair_tensors(padded, device),
-        torch.as_tensor(np.asarray(gammas), **f32),
-        torch.as_tensor(np.asarray(cs), **f32),
-        _training_kernel(kind, device), int(cv_epochs), int(n_epochs))
-    acc, alphas = acc.cpu().numpy(), alphas.cpu().numpy()
-    sel = [(float(gammas[g]), float(cs[c]), float(acc[p, g, c]))
-           for p, (g, c) in enumerate(zip(gi.tolist(), ci.tolist()))]
+                  device: torch.device, mesh=None
+                  ) -> tuple[list[SVMModel], list[float]]:
+    """CV-grid + select + refit one family for every pair in ``padded``:
+    the grid on ``device`` (or split over ``mesh``), the host-side first
+    argmax of each pair's grid, the refit on ``device``."""
+    acc = family_cv_grid(padded, kind, gammas, cs, cv_epochs, device=device,
+                         mesh=mesh)
+    sel = [_argmax_grid(acc[i], gammas, cs) for i in range(padded.n_pairs)]
+    alphas = family_refit(
+        padded, kind, np.asarray([s[0] for s in sel], np.float32),
+        np.asarray([s[1] for s in sel], np.float32), n_epochs, device=device)
     models = [
         _extract_model(kind, xb, yb, alphas[i], sel[i][0], sel[i][1])
         for i, (xb, yb) in enumerate(padded.subsets)
@@ -515,6 +579,7 @@ def train_pairs(
     n_folds: int = 5,
     hw_all: bool = False,
     device=None,
+    mesh=None,
 ) -> list[PairResult]:
     """Algorithm 1, batched: two solver launches (CV grid, refit) per family.
 
@@ -522,9 +587,11 @@ def train_pairs(
     families are linear, rbf and the hardware-in-the-loop family trained
     with ``hw``'s measured-curve kernel on a realizable gamma grid (for
     every pair; ``hw_all`` keeps that candidate for every pair instead of
-    only the RBF-selected ones).
+    only the RBF-selected ones).  ``mesh`` (``launch.mesh.
+    make_trainer_mesh``) runs the CV grids split over its devices; the
+    refits then run on ``device``, by default the mesh's first device.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     if hw is None:
         hw = default_hw(seed)
     if cv_epochs is None:
@@ -533,12 +600,12 @@ def train_pairs(
                        seed=seed)
     cs = DEFAULT_CS
     lin_models, lin_accs = _train_family(padded, "linear", np.array([1.0]),
-                                         cs, n_epochs, cv_epochs, dev)
+                                         cs, n_epochs, cv_epochs, dev, mesh)
     rbf_models, rbf_accs = _train_family(padded, "rbf", DEFAULT_RBF_GAMMAS,
-                                         cs, n_epochs, cv_epochs, dev)
+                                         cs, n_epochs, cv_epochs, dev, mesh)
     hw_models, _ = _train_family(padded, hw.kernel_response,
                                  hw_gamma_grid(hw), cs, n_epochs, cv_epochs,
-                                 dev)
+                                 dev, mesh)
 
     # Line 8: RBF only when STRICTLY better (beyond the CV-noise margin).
     kinds = ["rbf" if a_r > a_l + tie_margin else "linear"

@@ -20,3 +20,20 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def device_key(device) -> torch.device:
+    """``device`` with its index filled in (``cuda`` -> ``cuda:<current>``),
+    so that two names of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def mesh_device(device=None, mesh=None) -> torch.device:
+    """The device of an entry point that also takes a ``mesh``: the
+    caller's, else the mesh's first device, else the card."""
+    if device is None and mesh is not None:
+        return resolve_device(mesh.devices[0])
+    return resolve_device(device)

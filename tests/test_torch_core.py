@@ -339,6 +339,10 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'repro' or n.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "walked = ('api.fleet', 'serving.svm_engine', 'launch.mesh',\n"
+        "          'launch.serve_svm')\n"
+        "missing = [m for m in walked if 'repro_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     out = subprocess.run([sys.executable, "-c", code], env=env,

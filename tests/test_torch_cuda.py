@@ -564,3 +564,157 @@ def test_dag_labels_card_equal_cpu_off_ties(card):
     np.testing.assert_array_equal(got[clear], host.predict(x)[clear])
     np.testing.assert_array_equal(
         got[clear], ovo.decide_dag(on_card.predict_bits(x), 6)[clear])
+
+
+# -- fleet serving ---------------------------------------------------------------
+
+
+def _fleet_members(device, decider="votes"):
+    """Three members on ``device`` built from the same trained classifiers:
+    linear + rbf (K1) + analog pairs at K = 6, linear + rbf at K = 3 and at
+    K = 4 (d = 3)."""
+    from repro_torch.api import compile_machine
+
+    clfs6, _ = _dag_classifiers(6)
+    clfs4, _ = _dag_classifiers(4)
+    clfs3, _ = _dag_classifiers(3)
+    return {"six": compile_machine(clfs6, n_classes=6, decider=decider,
+                                   device=device),
+            "four": compile_machine(clfs4, n_classes=4, decider=decider,
+                                    device=device),
+            "three": compile_machine(clfs3, n_classes=3, decider=decider,
+                                     device=device)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decider", ["votes", "dag"])
+def test_fleet_bit_identical_to_members_on_card(card, decider):
+    """Inside the port, fleet against member is a bit-identity contract on
+    the card as on the CPU: the same banks through the same operations on
+    the same rows."""
+    from repro_torch.api import compile_fleet
+
+    members = _fleet_members(card, decider)
+    fleet = compile_fleet(members, decider=decider)
+    assert fleet.device.type == "cuda"
+    x = np.random.RandomState(5).rand(300, 3).astype(np.float32)
+    for mid, m in members.items():
+        np.testing.assert_array_equal(
+            fleet.decision_scores(x, mid).view(np.int32),
+            m.decision_scores(x).view(np.int32))
+        np.testing.assert_array_equal(fleet.predict(x, mid), m.predict(x))
+
+
+@pytest.mark.cuda
+def test_engine_on_card_matches_member_labels_off_ties(card):
+    """The engine on the card: pinned slots, its own stream, one event per
+    batch; every label equals its member's off ties, and each dispatch of
+    the votes fleet launches K1 once per rbf bank."""
+    from repro_torch.api import compile_fleet
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SVMEngine
+
+    members = _fleet_members(card)
+    fleet = compile_fleet(members)
+    n_rbf = sum(b.kind == "rbf" for m in members.values()
+                for b in m._kernel_banks)
+    rng = np.random.RandomState(6)
+    eng = SVMEngine(fleet, max_batch=64, max_wait_ms=1.0, pipeline_depth=2)
+    slot = eng._staging[8][0]
+    assert slot.x.is_pinned() and slot.out.is_pinned()
+    assert slot.dev_bufs[0][0].is_cuda
+    with eng:
+        eng.warmup()
+        ops.reset_launches()
+        reqs = [(mid, rng.rand(int(k), 3).astype(np.float32))
+                for mid, k in zip(rng.choice(list(members), 200),
+                                  rng.randint(1, 9, 200))]
+        futs = [eng.submit(x, mid) for mid, x in reqs]
+        got = [f.result(timeout=60.0) for f in futs]
+    s = eng.stats.summary()
+    assert ops.launch_counts()["kernel_matrix"] == n_rbf * s["n_batches"]
+    assert all(d["device_ms"] > 0 for d in s["dispatch"].values())
+    for (mid, x), lab in zip(reqs, got):
+        m = members[mid]
+        clear = (np.abs(m.decision_scores(x)) > 1e-5).all(axis=1)
+        np.testing.assert_array_equal(lab[clear], m.predict(x)[clear])
+
+
+@pytest.mark.cuda
+def test_engine_error_at_the_event_fails_its_futures(card):
+    """A failure that surfaces when the batcher waits on a batch's event
+    fails that batch's futures and stops the engine."""
+    from repro_torch.api import compile_fleet
+    from repro_torch.serving import SVMEngine
+
+    fleet = compile_fleet(_fleet_members(card))
+    eng = SVMEngine(fleet, max_batch=8, max_wait_ms=0.5)
+    orig = eng._forward
+
+    class Failing:
+        start = None
+
+        def __init__(self, launches):
+            self.launches = launches
+
+        def wait(self):
+            for launch in self.launches:
+                launch.wait()
+            raise RuntimeError("CUDA error: device-side assert triggered")
+
+    eng._forward = lambda slot: [Failing(orig(slot))]
+    with eng:
+        fut = eng.submit(np.zeros(3, np.float32), "six")
+        with pytest.raises(RuntimeError, match="device-side assert"):
+            fut.result(timeout=30.0)
+        eng._thread.join(timeout=10.0)
+        with pytest.raises(RuntimeError, match="failed batch"):
+            eng.submit(np.zeros(3, np.float32), "six")
+
+
+@pytest.mark.cuda
+def test_mesh_legs_on_one_card_equal_the_unsharded_paths(card):
+    """At d = 1 on the card every mesh leg is the unsharded program: the
+    serving mesh's labels against the fleet's, the variants mesh's stream
+    against the stream without a mesh, and the trainer mesh's CV grid (one
+    K2 launch per share) against the local grid, bit for bit; two shares
+    on the same card equal them too (the stream within the reference
+    test's atol 1e-5, its histogram within 1e-3)."""
+    from repro_torch.api import compile_fleet, compiled
+    from repro_torch.core import trainer
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+
+    fleet = compile_fleet(_fleet_members(card))
+    x = np.random.RandomState(7).rand(64, 3).astype(np.float32)
+    ids = ["six", "four", "three"] * 21 + ["six"]
+    for n in (1, 2):
+        fwd = fleet.shard(mesh_mod.make_serving_mesh(devices=[card] * n))
+        np.testing.assert_array_equal(fwd.predict(x, ids),
+                                      fleet.predict(x, ids))
+    cands = _tiny_candidates()
+    y = np.random.RandomState(8).randint(0, 3, 64)
+    a = np.ones((1, 3), bool)
+    sm = compiled.compile_mc_stream(cands, 3, key=0, mc_chunk=64,
+                                    device=card)
+    lo = sm.stream(x, y, a, n_variants=200, accuracy_floor=0.5)
+    sh = sm.stream(x, y, a, n_variants=200, accuracy_floor=0.5,
+                   mesh=mesh_mod.make_variant_mesh(1))
+    for k in ("mean", "std", "worst", "best", "yield", "hist"):
+        np.testing.assert_array_equal(sh[k], lo[k], err_msg=k)
+    two = sm.stream(x, y, a, n_variants=200, accuracy_floor=0.5,
+                    mesh=mesh_mod.make_variant_mesh(devices=[card] * 2))
+    for k in ("mean", "std", "worst", "best", "yield"):
+        np.testing.assert_allclose(two[k], lo[k], atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(two["hist"], lo["hist"], atol=1e-3)
+    rng = np.random.RandomState(0)
+    padded = trainer.pad_pairs(rng.rand(200, 3), rng.randint(0, 4, 200), 4)
+    g, cs = np.array([0.5, 2.0]), np.array([1.0, 10.0])
+    want = trainer.family_cv_grid(padded, "rbf", g, cs, 15, device=card)
+    for n in (1, 2):
+        ops.reset_launches()
+        got = trainer.family_cv_grid(padded, "rbf", g, cs, 15,
+                                     mesh=mesh_mod.make_trainer_mesh(
+                                         devices=[card] * n))
+        assert ops.launch_counts()["solver"] == n
+        np.testing.assert_array_equal(got, want)

@@ -367,7 +367,7 @@ def test_stream_rejects_bad_config(tiny):
     sm = _stream(cands, key=0)
     with pytest.raises(ValueError, match="n_variants"):
         sm.stream(x, y, a, n_variants=0, accuracy_floor=0.5)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="variants"):
         sm.stream(x, y, a, n_variants=4, accuracy_floor=0.5, mesh=object())
 
 
