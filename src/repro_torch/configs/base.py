@@ -1,13 +1,17 @@
-"""Shared helpers for architecture configs: the shape grid and the tiny
-same-family config of the CPU tests.
+"""Shared helpers for architecture configs: the shape grid, the input
+specs of each cell and the tiny same-family config of the CPU tests.
 
-Counterpart of ``repro/configs/base.py`` (``SHAPES``, ``reduced_common``).
-Each ``repro_torch/configs/<id>.py`` exposes ``make_config()`` (the full
-config, dims verbatim from the reference), ``reduced()`` and ``ARCH``.
+Counterpart of ``repro/configs/base.py``.  Each
+``repro_torch/configs/<id>.py`` exposes ``make_config()`` (the full config,
+dims verbatim from the reference), ``reduced()`` and ``ARCH``.
+``input_specs`` gives ``(shape, dtype)`` tuples where the reference gives
+``jax.ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.models.common import ModelConfig
 
@@ -17,6 +21,46 @@ SHAPES = {
     "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
     "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
 }
+
+
+def input_specs(cfg: ModelConfig, shape_name: str) -> dict:
+    """``(shape, dtype)`` of every model input of this cell, in the
+    reference's nesting: ``{"batch": {...}}`` for train and prefill,
+    ``{"state": ..., "tokens": ...}`` for decode (the serve state of
+    ``engine.state_shapes`` with its host ints ``pos`` (and ``enc_len``)
+    as int32 scalars)."""
+    from repro_torch.serving import engine
+
+    sh = SHAPES[shape_name]
+    s, b, kind = sh["seq_len"], sh["global_batch"], sh["kind"]
+    i32 = torch.int32
+    act = cfg.compute_dtype
+
+    if kind in ("train", "prefill"):
+        labels = kind == "train"
+        if cfg.family == "audio":
+            se, sd = s // cfg.enc_seq_divisor, s // cfg.dec_seq_divisor
+            batch = {"frames": ((b, se, cfg.d_model), act),
+                     "tokens": ((b, sd), i32)}
+            if labels:
+                batch["labels"] = ((b, sd), i32)
+        elif cfg.family == "vlm":
+            st = s - cfg.n_patches
+            batch = {"tokens": ((b, st), i32)}
+            if labels:
+                batch["labels"] = ((b, st), i32)
+            batch["patch_embeds"] = ((b, cfg.n_patches, cfg.d_model), act)
+        else:
+            batch = {"tokens": ((b, s), i32)}
+            if labels:
+                batch["labels"] = ((b, s), i32)
+        return {"batch": batch}
+
+    # decode: one new token against a seq_len cache
+    state = dict(engine.state_shapes(cfg, b, s))
+    for name in engine.host_ints(cfg):
+        state[name] = ((), i32)
+    return {"state": state, "tokens": ((b, 1), i32)}
 
 
 def reduced_common(cfg: ModelConfig, **overrides) -> ModelConfig:

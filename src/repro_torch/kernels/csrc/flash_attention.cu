@@ -27,8 +27,8 @@
 //   of 64 query rows each and one producer warp.  The producer loads the q
 //   tile once and the k / v tiles of 64 keys into a ring of kStages
 //   shared-memory stages by TMA (each stage with a full and an empty
-//   mbarrier), in the swizzle that wgmma reads: 128 B at dh 64, 64 B at dh
-//   32, two 64-column atoms of 128 B at dh 128.  A consumer computes
+//   mbarrier), in the swizzle that wgmma reads (the atom plan below).  A
+//   consumer computes
 //   S = q k^T with wgmma m64n64k16 (both operands in shared memory, f32
 //   accumulators), the online softmax on the accumulator fragments (the 4
 //   threads of a row reduce by shuffles, exp2 with log2(e) folded into the
@@ -230,13 +230,34 @@ constexpr int kStages = 2;
 // Shared-memory tiles of R rows x DH bf16, as TMA writes them: the dh axis
 // is cut into atoms of kAtomCols columns (one swizzle span of kRowBytes),
 // each atom a region of R rows x kRowBytes.
+//
+// The atom plan: the widest swizzle whose span divides the row, so that
+// every atom is one TMA box of the same width and every operand one
+// descriptor of one layout type.
+//   dh 64, 128: 64-column atoms, 128 B swizzle (one or two atoms);
+//   dh 32, 96:  32-column atoms, 64 B swizzle (one or three atoms): 96
+//               columns are 192 B, which 128 B spans do not divide;
+//   dh 112:     16-column atoms, 32 B swizzle (seven atoms): 224 B rows
+//               are divided by no wider span.  A 64 + 48 split would need
+//               two layout types in the p v operand (one descriptor per
+//               wgmma), and padding to 128 columns 14 % more tensor-core
+//               work.  32 B swizzle still reads each 8-row x 16 B core
+//               matrix from 8 distinct bank quads.
+// A q k^T k-step (16 columns) always lies inside one atom; the p v product
+// walks the atoms along N with the descriptor's leading byte offset.
 template <int DH>
 struct TcLayout {
-  static constexpr int kAtomCols = DH == 32 ? 32 : 64;
+  static_assert(DH % 16 == 0 && DH <= 128, "dh: a multiple of 16 up to 128");
+  static constexpr int kAtomCols = DH % 64 == 0 ? 64 : DH % 32 == 0 ? 32 : 16;
   static constexpr int kAtoms = DH / kAtomCols;
   static constexpr int kRowBytes = kAtomCols * 2;
-  // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B swizzle.
-  static constexpr uint64_t kLayoutType = DH == 32 ? 2 : 1;
+  // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle.
+  static constexpr uint64_t kLayoutType =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowBytes == 128   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
   static constexpr int kQBytes = kTcBlockQ * DH * 2;
   static constexpr int kKvBytes = kBlockK * DH * 2;   // one k or v tile
   static constexpr int kSmem = 1024 /* alignment slack */ + kQBytes +
@@ -388,6 +409,64 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D (64 x 96, f32) += A (64 x 16, bf16 fragments in registers) * B (16 x
+// 96, bf16 in shared memory, MN-major: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}"
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 112, f32) += A (64 x 16, bf16 fragments in registers) * B (16 x
+// 112, bf16 in shared memory, MN-major: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}"
+      ", {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 fragments in registers) * B (16 x
 // 128, bf16 in shared memory, MN-major: imm-trans-b = 1).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -427,7 +506,12 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
     wgmma_rs_n32(o, a, desc);
   } else if constexpr (DH == 64) {
     wgmma_rs_n64(o, a, desc);
+  } else if constexpr (DH == 96) {
+    wgmma_rs_n96(o, a, desc);
+  } else if constexpr (DH == 112) {
+    wgmma_rs_n112(o, a, desc);
   } else {
+    static_assert(DH == 128, "no p v product at this head dim");
     wgmma_rs_n128(o, a, desc);
   }
 }
@@ -435,6 +519,8 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
 // Accumulator fragment of a 64 x N wgmma tile (f32) in thread `t` of the
 // warpgroup: register i holds row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2)
 // and column 8 (i / 4) + 2 (t % 4) + i % 2.
+// Two CTAs per SM up to dh 64; from dh 96 one (the DH / 2 f32 output
+// registers of a thread would be capped at 113 registers by two).
 template <int DH>
 __global__ void __launch_bounds__(kTcThreads, DH <= 64 ? 2 : 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -714,8 +800,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
                 int hq, int hkv, int sq, int skv, int causal, int window,
                 int q_offset, cudaStream_t stream) {
   using L = TcLayout<DH>;
-  const CUtensorMapSwizzle sw =
-      DH == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapSwizzle sw = L::kSwizzle;
   CUtensorMap q_map, k_map, v_map;
   int rc = make_map(&q_map, q, b * hq, sq, DH, kTcBlockQ, L::kAtomCols, sw);
   if (rc == 0) rc = make_map(&k_map, k, b * hkv, skv, DH, kBlockK, L::kAtomCols, sw);
@@ -742,6 +827,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
     case 64:                                                                  \
       return FN<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,          \
                     q_offset, s);                                             \
+    case 96:                                                                  \
+      return FN<96>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,          \
+                    q_offset, s);                                             \
+    case 112:                                                                 \
+      return FN<112>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,         \
+                     q_offset, s);                                            \
     case 128:                                                                 \
       return FN<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,         \
                      q_offset, s);                                            \
@@ -757,7 +848,8 @@ extern "C" {
 // Launch K3 on `stream`.  q (b, hq, sq, dh), k and v (b, hkv, skv, dh) and
 // o like q, all contiguous on the device; dtype 0 = f32 (the CUDA-core
 // kernel), 1 = bf16 (the tensor-core kernel; q, k and v 16 B aligned for
-// TMA); dh in {32, 64, 128}; hq % hkv == 0; window < 0 means none.
+// TMA); dh in {32, 64, 96, 112, 128}; hq % hkv == 0; window < 0 means
+// none.
 // Returns cudaGetLastError() after the launch (0 on success), or a code of
 // the tensor-map step (k3_error_string names it).
 int k3_flash_attention(const void* q, const void* k, const void* v, void* o,

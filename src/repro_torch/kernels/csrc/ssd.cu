@@ -33,8 +33,8 @@
 //
 //   1. ssd_chunk_state_kernel, one CTA per (batch, chunk, head): the
 //      chunk's inclusive cumsum of a (every warp scans 32 steps, then the
-//      warp totals are added), written to `cum`, and the chunk's own state
-//      dS = x^T (B * exp(cum_L - cum)), written to `states`.
+//      warp totals are added, in f64), written to `cum`, and the chunk's
+//      own state dS = x^T (B * exp(cum_L - cum)), written to `states`.
 //   2. ssd_state_pass_kernel, one thread per (batch, head, d, k): S_0 = 0,
 //      S_{c+1} = exp(cum_L of c) S_c + dS_c, the Pallas kernel's s_new in
 //      the same order; S_c (the state before chunk c) replaces dS_c in
@@ -51,8 +51,19 @@
 //      stored as float4.  The upper triangle is selected to 0, never
 //      multiplied: exp(cum_t - cum_j) above the diagonal can overflow.
 //
-// B and C are staged padded with zeros to DS (8, 16, 32 or 64), so every
-// ds up to 64 runs on a kernel with its state width fixed at compile time.
+// B and C are staged padded with zeros to DS (8, 16, 32, 64 or 128), so
+// every ds up to 128 runs on a kernel with its state width fixed at compile
+// time.  At DS 128 (mamba2-2.7b's ssm_state) two things change:
+//   * pass 3's B, C^T and S_prev^T alone take 2 x 64 + 32 KB of shared
+//     memory at dh 64, and x (32 KB) with the strip (34 KB) would pass the
+//     227 KB a CTA may have; so x is not staged there but read as float4
+//     through L1 (the 8 warps read the same 256 B rows, so all but the
+//     first read of a row hit), leaving ~195 KB and one CTA per SM;
+//   * the row of C a thread keeps in registers while it builds G is taken
+//     in k-tiles of 64 (kCTile), G's partial sums parked in the strip, so
+//     the registers stay those of DS 64.
+//   Pass 1 keeps its plan: kK = dh * DS / 256 = 32 accumulators at (64,
+//   128), x and B * exp(cum_L - cum) staged in ~97 KB.
 #include <cuda_runtime.h>
 
 namespace repro_torch {
@@ -128,21 +139,26 @@ __device__ __forceinline__ void load_bc(float* dst, const float* src,
 // Inclusive cumsum of the chunk's a (chunk <= 128, a multiple of 32) by
 // all the warps that hold steps: a shuffle scan over 32 steps per warp,
 // then the totals of the warps before.  Ends with cum complete (synced).
-__device__ __forceinline__ void chunk_cumsum(float* cum, float* wsum,
+// The sums are taken in f64 and rounded once to f32: with a strong decay
+// cum reaches -10^2..-10^3 within a chunk, and exp(cum_t - cum_j) turns
+// each ulp of cum into a relative error of y.  A tree of f32 sums put y 1.7x
+// farther from an f64 scan than the plain version's cumsum does at mamba2's
+// ds 128 (measured on an H100); 128 f64 adds per tile cost nothing here.
+__device__ __forceinline__ void chunk_cumsum(float* cum, double* wsum,
                                              const float* a, const Tile& tl,
                                              int nh, int chunk) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  float v = t < chunk ? a[(tl.row0 + t) * nh + tl.h] : 0.f;
+  double v = t < chunk ? a[(tl.row0 + t) * nh + tl.h] : 0.0;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, v, off);
+    const double o = __shfl_up_sync(0xffffffffu, v, off);
     if (lane >= off) v += o;
   }
   if (lane == 31 && t < chunk) wsum[warp] = v;
   __syncthreads();
   if (t < chunk) {
     for (int w = 0; w < warp; ++w) v += wsum[w];
-    cum[t] = v;
+    cum[t] = static_cast<float>(v);
   }
   __syncthreads();
 }
@@ -182,7 +198,8 @@ ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ a,
   float* xs = smem;                  // chunk x DH
   float* wb = xs + chunk * DH;       // chunk x DS: B * exp(cum_L - cum)
   float* cum = wb + chunk * DS;      // chunk
-  float* wsum = cum + chunk;         // kMaxChunk / 32
+  double* wsum = reinterpret_cast<double*>(cum + chunk);  // kMaxChunk / 32
+                                     // (chunk is even: 8 B aligned)
 
   const Tile tl = tile_of(s, nh, g, chunk);
   const int tid = threadIdx.x;
@@ -267,9 +284,16 @@ ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ bm,
   constexpr int kDG = DH / 4;        // dim groups of 4 (16 or 4)
   constexpr int kRG = 32 / kDG;      // row groups per warp (2 or 8)
   constexpr int kR = 8 / kRG;        // rows per thread (4 or 1)
+  // x staged in shared memory up to DS 64, read through L1 at DS 128 (where
+  // a staged x does not fit).  Reading it through L1 at DS 16 too made
+  // hymba's K4 ~11 % slower on the H100 (0.436-0.439 vs 0.391-0.396 ms).
+  constexpr bool kStageX = DS <= 64;
+  // Columns of the C row held in registers at once while G is built.
+  constexpr int kCTile = DS < 64 ? DS : 64;
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                        // chunk x DH
-  float* mt = xs + chunk * DH;             // chunk x kStripLd: (G * decay)^T
+  float* xs = smem;                        // chunk x DH (if kStageX)
+  float* mt = xs + (kStageX ? chunk * DH : 0);  // chunk x kStripLd:
+                                                // (G * decay)^T
   float* bs = mt + chunk * kStripLd;       // chunk x DS: B
   float* ct = bs + chunk * DS;             // DS x chunk: C^T
   float* st = ct + DS * chunk;             // DS x DH: S_prev^T
@@ -279,7 +303,7 @@ ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ bm,
   const Tile tl = tile_of(s, nh, g, chunk);
   const int nc = s / chunk;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  load_x_async<DH>(xs, x, tl, nh, chunk);
+  if constexpr (kStageX) load_x_async<DH>(xs, x, tl, nh, chunk);
   load_bc<DS>(bs, bm, tl, g, ds, chunk, DS, 1);
   load_bc<DS>(ct, cm, tl, g, ds, chunk, 1, chunk);
   const float* sp = states + (tl.bh * nc + tl.c) * DH * ds;
@@ -299,31 +323,38 @@ ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ bm,
   for (int s0 = 0; s0 < chunk; s0 += kStrip) {
     const int rows = min(kStrip, chunk - s0);   // a multiple of 32
     // (G * decay)^T of rows s0..s0+rows-1 against columns j < s0 + rows:
-    // thread (row tl, column phase jg) keeps its row of C in registers.
+    // thread (row tl, column phase jg) keeps kCTile columns of its row of C
+    // in registers at a time; between k-tiles the partial sums of G wait in
+    // the strip (the same thread reads back what it wrote).
     {
       const int r = tid % kStrip, jg = tid / kStrip;
       const int t = s0 + r;
       if (r < rows) {
-        float cr[DS];
-#pragma unroll
-        for (int k = 0; k < DS; ++k) cr[k] = ct[k * chunk + t];
         const float cum_t = cum[t];
-        for (int j = jg; j < s0 + rows; j += kThreads / kStrip) {
-          float v = 0.f;
-          if (j <= t) {
-            float gtj = 0.f;
+#pragma unroll 1
+        for (int k0 = 0; k0 < DS; k0 += kCTile) {
+          float cr[kCTile];
 #pragma unroll
-            for (int k = 0; k < DS; k += 4) {
-              const float4 bv =
-                  *reinterpret_cast<const float4*>(bs + j * DS + k);
-              gtj = fmaf(cr[k], bv.x, gtj);
-              gtj = fmaf(cr[k + 1], bv.y, gtj);
-              gtj = fmaf(cr[k + 2], bv.z, gtj);
-              gtj = fmaf(cr[k + 3], bv.w, gtj);
+          for (int k = 0; k < kCTile; ++k) cr[k] = ct[(k0 + k) * chunk + t];
+          const bool last = k0 + kCTile == DS;
+          for (int j = jg; j < s0 + rows; j += kThreads / kStrip) {
+            float* mj = mt + j * kStripLd + r;
+            if (j <= t) {
+              float gtj = k0 == 0 ? 0.f : *mj;
+#pragma unroll
+              for (int k = 0; k < kCTile; k += 4) {
+                const float4 bv =
+                    *reinterpret_cast<const float4*>(bs + j * DS + k0 + k);
+                gtj = fmaf(cr[k], bv.x, gtj);
+                gtj = fmaf(cr[k + 1], bv.y, gtj);
+                gtj = fmaf(cr[k + 2], bv.z, gtj);
+                gtj = fmaf(cr[k + 3], bv.w, gtj);
+              }
+              *mj = last ? gtj * expf(fminf(cum_t - cum[j], 0.f)) : gtj;
+            } else if (k0 == 0) {
+              *mj = 0.f;
             }
-            v = gtj * expf(fminf(cum_t - cum[j], 0.f));
           }
-          mt[j * kStripLd + r] = v;
         }
       }
     }
@@ -358,7 +389,10 @@ ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ bm,
       const int jend = s0 + warp * 8 + 8;   // past the warp's last row
 #pragma unroll 4
       for (int j = 0; j < jend; ++j) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + j * DH + d0);
+        const float4 xv =
+            kStageX ? *reinterpret_cast<const float4*>(xs + j * DH + d0)
+                    : __ldg(reinterpret_cast<const float4*>(
+                          x + ((tl.row0 + j) * nh + tl.h) * DH + d0));
         float mv[kR];
         load_vec<kR>(mt + j * kStripLd + r0, mv);
 #pragma unroll
@@ -381,13 +415,14 @@ ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ bm,
 }
 
 size_t state_smem(int dh, int ds, int chunk) {
-  return sizeof(float) * (static_cast<size_t>(chunk) * (dh + ds + 1) +
-                          kMaxChunk / 32);
+  return sizeof(float) * static_cast<size_t>(chunk) * (dh + ds + 1) +
+         sizeof(double) * (kMaxChunk / 32);
 }
 
 size_t scan_smem(int dh, int ds, int chunk) {
+  const int x_cols = ds <= 64 ? dh : 0;   // kStageX
   return sizeof(float) * (static_cast<size_t>(chunk) *
-                              (dh + kStripLd + 2 * ds + 2) +
+                              (x_cols + kStripLd + 2 * ds + 2) +
                           static_cast<size_t>(ds) * dh);
 }
 
@@ -445,8 +480,11 @@ int launch_dh(const float* x, const float* a, const float* bm,
   if (ds <= 32)
     return launch<DH, 32>(x, a, bm, cm, y, sfin, cum, states, b, s, nh, g,
                           ds, chunk, chunk_states_only, st);
-  return launch<DH, 64>(x, a, bm, cm, y, sfin, cum, states, b, s, nh, g, ds,
-                        chunk, chunk_states_only, st);
+  if (ds <= 64)
+    return launch<DH, 64>(x, a, bm, cm, y, sfin, cum, states, b, s, nh, g,
+                          ds, chunk, chunk_states_only, st);
+  return launch<DH, 128>(x, a, bm, cm, y, sfin, cum, states, b, s, nh, g, ds,
+                         chunk, chunk_states_only, st);
 }
 
 }  // namespace
@@ -460,7 +498,7 @@ extern "C" {
 // x (b, s, nh, dh), a (b, s, nh), bm and cm (b, s, g, ds), y like x, sfin
 // (b, nh, dh, ds), and the scratch cum (b, nh, s) and states (b, nh,
 // s / chunk, dh, ds): all contiguous f32 on the device, x and y 16-byte
-// aligned.  dh in {16, 64}, 1 <= ds <= 64, nh % g == 0, chunk a multiple
+// aligned.  dh in {16, 64}, 1 <= ds <= 128, nh % g == 0, chunk a multiple
 // of 32 up to 128 dividing s.  After the call, cum holds each chunk's
 // inclusive cumsum of a and states each chunk's dS (with
 // chunk_states_only) or else the state entering it.  Returns the first
@@ -471,7 +509,7 @@ int k4_ssd_scan(const float* x, const float* a, const float* bm,
                 int chunk, int chunk_states_only, void* stream) {
   using namespace repro_torch;
   if (b <= 0 || nh <= 0) return 0;
-  if (g <= 0 || nh % g != 0 || ds <= 0 || ds > 64 || chunk <= 0 ||
+  if (g <= 0 || nh % g != 0 || ds <= 0 || ds > 128 || chunk <= 0 ||
       chunk % 32 != 0 || chunk > kMaxChunk || s <= 0 || s % chunk != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,7 +4,9 @@ hand-written in CUDA C++ for Hopper (``csrc/flash_attention.cu``).
 Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention`` (body
 ``_flash_kernel``).  ``q (b, hq, sq, dh)`` against ``k, v (b, hkv, skv,
-dh)``, ``dh`` in {32, 64, 128} -> ``(b, hq, sq, dh)`` in q's dtype.  The kv
+dh)``, ``dh`` in {32, 64, 96, 112, 128} -> ``(b, hq, sq, dh)`` in q's
+dtype (96: phi-3-vision, 112: kimi-k2).  ``sq`` and ``skv`` may differ, as
+in whisper's cross-attention (non-causal, ``skv`` any length).  The kv
 head of q head h is ``h // (hq // hkv)``; kv blocks that no query row of a q
 block can see are never loaded (O(S * W) for a window).
 
@@ -30,7 +32,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 112, 128)
 #: TMA reads a tile from a 16-byte aligned base address.
 TMA_ALIGN = 16
 

@@ -28,8 +28,13 @@ import torch
 
 from repro_torch.kernels import build
 
-#: hymba's ssm head dim, and the reference's Pallas test sweep's.
+#: hymba's and mamba2's ssm head dim, and the reference's Pallas test
+#: sweep's.
 HEAD_DIMS = (16, 64)
+
+#: The widest state the kernel takes (mamba2-2.7b's ssm_state); narrower
+#: ones are padded to 8, 16, 32, 64 or 128 columns inside it.
+MAX_STATE = 128
 
 #: Device launches per call: chunk states, state pass, chunk scan.
 DEVICE_LAUNCHES = 3
@@ -54,7 +59,7 @@ def ssd_passes_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     g, ds = bmat.shape[2], bmat.shape[3]
     if dh not in HEAD_DIMS:
         raise ValueError(f"ssm head dim {dh} not in {HEAD_DIMS}")
-    if g <= 0 or nh % g or not 0 < ds <= 64:
+    if g <= 0 or nh % g or not 0 < ds <= MAX_STATE:
         raise ValueError(f"bad groups / state: nh={nh}, g={g}, ds={ds}")
     if chunk % 32 or not 0 < chunk <= 128 or s % chunk:
         raise ValueError(f"chunk {chunk} must be a multiple of 32 up to 128 "

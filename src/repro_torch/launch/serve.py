@@ -1,13 +1,17 @@
 """Serving entry point: prefill + batched decode with sampling.
 
-Counterpart of ``repro/launch/serve.py``.  A batch of random prompts goes
-through ``engine.prefill`` and is decoded step-locked with temperature
-sampling; the first token is the argmax of the prefill logits.  The weights
-are a random init from ``--seed`` (no pretrained weights are in the repo).
+Counterpart of ``repro/launch/serve.py``, for every ``--arch`` of the
+registry.  A batch of random prompts goes through ``engine.prefill`` and is
+decoded step-locked with temperature sampling; the first token is the
+argmax of the prefill logits.  The weights are a random init from
+``--seed`` (no pretrained weights are in the repo).  As the reference's
+launcher, it sends tokens only: a vlm serves without patch embeddings, and
+the audio family (whisper) raises in ``engine.prefill``; whisper serves
+through ``engine.prefill_audio`` + ``engine.decode_step``.
 
   python -m repro_torch.launch.serve --device cpu          # reduced config
-  python -m repro_torch.launch.serve --no-reduced --batch 4 \
-      --prompt-len 2048 --gen 32                           # full width, card
+  python -m repro_torch.launch.serve --arch starcoder2-7b --no-reduced \
+      --batch 4 --prompt-len 2048 --gen 32                 # full width, card
 
 The reference's ``--reduced`` is ``store_true`` with ``default=True``, so
 its CLI can never reach the full config; here it is a

@@ -3,9 +3,11 @@
 Counterpart of ``repro/models/attention.py``.
 
 * ``attend``        -- full-sequence attention through ``ops.flash_attention``
-  (K3 on the card, its plain online-softmax version on the CPU).  The
-  reference's jnp ``attend_scan`` / ``attend_full`` mirror the same
-  function; the port has one path.
+  (K3 on the card, its plain online-softmax version on the CPU): causal
+  self-attention, or none (whisper's encoder and its cross-attention, where
+  the queries and keys differ in length).  The reference's jnp
+  ``attend_scan`` / ``attend_full`` mirror the same function; the port has
+  one path.
 * ``attend_decode`` -- one query token against a KV cache (ring buffer for
   SWA layers), plain torch: (1, S) logits are tiny and the reference has no
   Pallas kernel for it.
@@ -49,25 +51,45 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     )
 
 
+def query(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+          positions: torch.Tensor) -> torch.Tensor:
+    """x: (b, s, d) -> q (b, hq, s, dh), rope applied."""
+    b, s, _ = x.shape
+    q = dense_apply(p.wq, x).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    return rope(q.transpose(1, 2), positions, cfg.rope_theta)
+
+
+def kv_of(cfg: ModelConfig, p: Attention, x: torch.Tensor):
+    """x: (b, s, d) -> k, v (b, hkv, s, dh) without rope (whisper's
+    cross-attention keys from the encoder output)."""
+    b, s, _ = x.shape
+    shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
+    return (dense_apply(p.wk, x).reshape(shape).transpose(1, 2),
+            dense_apply(p.wv, x).reshape(shape).transpose(1, 2))
+
+
 def qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         positions: torch.Tensor):
     """x: (b, s, d) -> q (b, hq, s, dh), k/v (b, hkv, s, dh), rope applied."""
-    b, s, _ = x.shape
-    dh = cfg.head_dim
-    q = dense_apply(p.wq, x).reshape(b, s, cfg.n_heads, dh).transpose(1, 2)
-    k = dense_apply(p.wk, x).reshape(b, s, cfg.n_kv_heads, dh).transpose(1, 2)
-    v = dense_apply(p.wv, x).reshape(b, s, cfg.n_kv_heads, dh).transpose(1, 2)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    return q, k, v.contiguous()
+    k, v = kv_of(cfg, p, x)
+    return (query(cfg, p, x, positions), rope(k, positions, cfg.rope_theta),
+            v.contiguous())
 
 
-def attend(cfg: ModelConfig, q, k, v, window=None) -> torch.Tensor:
-    """Causal self-attention over one sequence (K3 through
-    ``ops.flash_attention``), ``window`` None for a global layer.
-    (b, hq, s, dh) x (b, hkv, s, dh) -> (b, hq, s, dh) in q's dtype."""
+def attend(cfg: ModelConfig, q, k, v, causal: bool = True,
+           window=None) -> torch.Tensor:
+    """Attention of one sequence (K3 through ``ops.flash_attention``):
+    causal, or not (whisper's encoder, and its cross-attention with sq !=
+    skv); ``window`` None for a global layer.
+    (b, hq, sq, dh) x (b, hkv, skv, dh) -> (b, hq, sq, dh) in q's dtype."""
     return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               window=window)
+                               causal=causal, window=window)
+
+
+def merge_heads(out: torch.Tensor) -> torch.Tensor:
+    """(b, hq, s, dh) -> (b, s, hq * dh), the input of ``wo``."""
+    b, hq, s, dh = out.shape
+    return out.transpose(1, 2).reshape(b, s, hq * dh)
 
 
 # ---------------------------------------------------------------------------

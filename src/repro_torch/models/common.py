@@ -2,8 +2,8 @@
 
 Counterpart of ``repro/models/common.py``.  One ``ModelConfig`` covers every
 architecture family of the reference (dense / moe / ssm / hybrid / vlm /
-audio); this slice of the port runs the hybrid family.  Mesh sharding
-(``ShardRules`` / ``shard``) is a no-op on one card and is left out.
+audio).  Mesh sharding (``ShardRules`` / ``shard``) is a no-op on one card
+and is left out.
 
 Parameters live in ``nn.Module``s.  Dense weights are stored in the layout
 ``nn.Linear`` uses, ``(d_out, d_in)`` (``DENSE_LAYOUT``), and applied with

@@ -4,11 +4,16 @@
 ``repro.models.transformer.init_params`` returns, already turned into numpy
 arrays by the caller (``jax.tree.map(np.asarray, params)``), with the
 layers stacked along a leading axis ``(L, ...)``, and returns the port's
-``Transformer``.  Dense weights arrive as ``(d_in, d_out)`` (the reference
-computes ``x @ w``) and are stored transposed, in ``common.DENSE_LAYOUT``
-``(d_out, d_in)``, in ``dtype`` (default: the config's compute dtype).
-Norm scales, the conv kernel and the SSM vectors stay f32, as the
-reference keeps and applies them.  This module imports no JAX.
+``Transformer``, for every family: a block's keys (``norm1``, ``attn``,
+``norm2``, ``mlp``, ``moe``, ``ssm``, ``norm_x``, ``xattn``) become the
+``Block``'s submodules of the same names, and whisper's ``enc_layers`` /
+``enc_norm`` the encoder's.  Dense weights arrive as ``(d_in, d_out)`` (the
+reference computes ``x @ w``) and are stored transposed, in
+``common.DENSE_LAYOUT`` ``(d_out, d_in)``, in ``dtype`` (default: the
+config's compute dtype); the MoE's expert weights keep the reference's
+``(e, d, f)`` / ``(e, f, d)`` layout, in ``dtype``.  Norm scales, the MoE
+router, the conv kernel and the SSM vectors stay f32, as the reference
+keeps and applies them.  This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -47,20 +52,47 @@ def _norm(cfg: ModelConfig, tree: dict, i, device) -> Norm:
     return p
 
 
-def _block(cfg: ModelConfig, lt: dict, i: int, device, dtype) -> tfm.Block:
-    a, s, m = lt["attn"], lt["ssm"], lt["mlp"]
-    ssm_p = ssm_mod.SSM(cfg, _dense(s["in_proj"], i, device, dtype),
-                        _dense(s["out_proj"], i, device, dtype), device)
+def _attention(tree: dict, i: int, device, dtype) -> attn.Attention:
+    return attn.Attention(*(_dense(tree[n], i, device, dtype)
+                            for n in ("wq", "wk", "wv", "wo")))
+
+
+def _mlp(tree: dict, i: int, device, dtype) -> mlp_mod.MLP:
+    return mlp_mod.MLP(*(_dense(tree[n], i, device, dtype)
+                         for n in ("wg", "wu", "wd")))
+
+
+def _moe(tree: dict, i: int, device, dtype) -> mlp_mod.MoE:
+    shared = tree.get("shared")
+    return mlp_mod.MoE(
+        _dense(tree["router"], i, device, torch.float32),
+        *(_tensor(tree[n][i], device, dtype) for n in ("wg", "wu", "wd")),
+        None if shared is None else _mlp(shared, i, device, dtype))
+
+
+def _ssm(cfg: ModelConfig, tree: dict, i: int, device, dtype) -> ssm_mod.SSM:
+    p = ssm_mod.SSM(cfg, _dense(tree["in_proj"], i, device, dtype),
+                    _dense(tree["out_proj"], i, device, dtype), device)
     for name in ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm"):
-        getattr(ssm_p, name).data = _tensor(s[name][i], device, torch.float32)
-    return tfm.Block(
-        _norm(cfg, lt["norm1"], i, device),
-        attn.Attention(*(_dense(a[n], i, device, dtype)
-                         for n in ("wq", "wk", "wv", "wo"))),
-        ssm_p,
-        _norm(cfg, lt["norm2"], i, device),
-        mlp_mod.MLP(*(_dense(m[n], i, device, dtype)
-                      for n in ("wg", "wu", "wd"))))
+        getattr(p, name).data = _tensor(tree[name][i], device, torch.float32)
+    return p
+
+
+def _block(cfg: ModelConfig, lt: dict, i: int, device, dtype) -> tfm.Block:
+    kw = {}
+    for key in ("norm1", "norm2", "norm_x"):
+        if key in lt:
+            kw[key] = _norm(cfg, lt[key], i, device)
+    for key in ("attn", "xattn"):
+        if key in lt:
+            kw[key] = _attention(lt[key], i, device, dtype)
+    if "mlp" in lt:
+        kw["mlp"] = _mlp(lt["mlp"], i, device, dtype)
+    if "moe" in lt:
+        kw["moe"] = _moe(lt["moe"], i, device, dtype)
+    if "ssm" in lt:
+        kw["ssm"] = _ssm(cfg, lt["ssm"], i, device, dtype)
+    return tfm.Block(**kw)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None,
@@ -68,13 +100,18 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None,
     """The reference's parameters (numpy, layers stacked) as the port's
     ``Transformer`` on ``device`` (``None``: the card, see
     ``repro_torch.device.resolve_device``)."""
-    tfm._require_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
     layers = [_block(cfg, tree["layers"], i, device, dtype)
               for i in range(cfg.n_layers)]
+    enc_layers = enc_norm = None
+    if "enc_layers" in tree:
+        enc_layers = [_block(cfg, tree["enc_layers"], i, device, dtype)
+                      for i in range(cfg.n_enc_layers)]
+        enc_norm = _norm(cfg, tree["enc_norm"], None, device)
     unembed = tree.get("unembed")
     return tfm.Transformer(
         _tensor(tree["embed"], device, dtype), layers,
         _norm(cfg, tree["final_norm"], None, device),
-        None if unembed is None else _tensor(unembed, device, dtype))
+        None if unembed is None else _tensor(unembed, device, dtype),
+        enc_layers, enc_norm)

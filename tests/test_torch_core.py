@@ -340,7 +340,13 @@ def test_port_imports_no_jax_and_no_reference():
         "       or n == 'repro' or n.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "walked = ('api.fleet', 'serving.svm_engine', 'launch.mesh',\n"
-        "          'launch.serve_svm')\n"
+        "          'launch.serve_svm', 'models.mlp', 'models.convert',\n"
+        "          'serving.engine', 'launch.serve', 'configs.base',\n"
+        "          'configs.starcoder2_7b', 'configs.granite_20b',\n"
+        "          'configs.qwen2_5_32b', 'configs.command_r_35b',\n"
+        "          'configs.kimi_k2_1t_a32b', 'configs.granite_moe_1b_a400m',\n"
+        "          'configs.phi_3_vision_4_2b', 'configs.mamba2_2_7b',\n"
+        "          'configs.whisper_medium')\n"
         "missing = [m for m in walked if 'repro_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")

@@ -8,8 +8,9 @@ These need an NVIDIA GPU (a CUDA kernel has no CPU mode): they carry the
 This file imports neither JAX nor the reference package, so it runs where
 only the port is installed.  Tolerances are those of
 tests/test_torch_kernels.py (K1: atol max(5e-6, 2e-6 gamma), rtol 1e-5;
-K2) and tests/test_torch_lm_kernels.py (K3: 2e-5 in f32, 2e-2 in bf16; K4
-and each of its passes: atol 1e-4).
+K2) and tests/test_torch_lm_kernels.py (K3: 2e-5 in f32, 2e-2 in bf16, at
+every head dim the configs use, 32 to 128; K4 and each of its passes: atol
+1e-4, at state widths up to 128).
 """
 import numpy as np
 import pytest
@@ -361,6 +362,136 @@ def test_reduced_hymba_prefill_card_matches_cpu(card):
     np.testing.assert_allclose(st_c["ssm"].cpu().numpy(), st_h["ssm"].numpy(),
                                atol=1e-4, rtol=1e-4)
 
+
+
+# -- the other LM families: K3 at dh 96 / 112 and across lengths, K4 at ds 128 ---
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_offset", [0, 37])
+@pytest.mark.parametrize("sq", [64, 100, 200])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [96, 112])
+def test_k3_phi3_and_kimi_head_dims_match_plain(card, dh, dtype, causal,
+                                                window, sq, q_offset):
+    """phi-3-vision's dh 96 (32-column atoms, 64 B swizzle, m64n96) and
+    kimi-k2's dh 112 (16-column atoms, 32 B swizzle, m64n112) with a GQA
+    group of 8, every mask, ragged sq and a q block offset; f32 through the
+    CUDA-core kernel.  Tolerances 2e-5 (f32) and 2e-2 (bf16)."""
+    q, k, v = _qkv(20 + dh, 1, 8, 1, sq, sq + q_offset, dh, dtype, card)
+    variant = (flash_attention.LAUNCHES_TC if dtype == torch.bfloat16
+               else flash_attention.LAUNCHES_F32)
+    before = variant.count
+    got = flash_attention.flash_attention_cuda(q, k, v, causal, window,
+                                               q_offset)
+    want = ref.flash_attention(q, k, v, causal, window, q_offset)
+    torch.cuda.synchronize()
+    assert variant.count == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 96, 112])
+def test_k3_cross_attention_lengths_match_plain(card, dh, dtype):
+    """Non-causal with sq != skv, as whisper's cross-attention runs it: 64
+    decoder queries against 1500 encoder keys (a ragged last kv block)."""
+    q, k, v = _qkv(30 + dh, 2, 8, 8, 64, 1500, dh, dtype, card)
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=False)
+    want = ref.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_scale", [0.3, 3.0])
+@pytest.mark.parametrize("g", [1, 2])
+def test_k4_mamba2_state_width_passes_match_plain(card, g, a_scale):
+    """mamba2's ssm_state 128 at dh 64, chunk 128, over 4 chunks, with a
+    mild and a strong decay: y and the final state against the plain K4,
+    and each pass against its plain twin on the kernel's own inputs to it
+    (atol 1e-4; pass 1's cumsum, which reaches -300 with the strong decay,
+    also rtol 1e-5, as chip_smoke.py's phase 5 holds it)."""
+    rng = np.random.RandomState(40 + g + int(a_scale * 10))
+    b, s, h, dh, ds = 2, 512, 4, 64, 128
+    x = rng.randn(b, s, h, dh) * 0.3
+    a = -np.abs(rng.randn(b, s, h)) * a_scale
+    bm, cm = (rng.randn(b, s, g, ds) * 0.3 for _ in range(2))
+    x, a, bm, cm = (_t(t).to(card) for t in (x, a, bm, cm))
+    _, _, cum1, ds1 = ssd.ssd_passes_cuda(x, a, bm, cm, 128,
+                                           chunk_states_only=True)
+    y, s_fin, cum, s_prev = ssd.ssd_passes_cuda(x, a, bm, cm, 128)
+    cum_p, ds_p = ref.ssd_chunk_states(x, a, bm, 128)
+    s_prev_p, s_fin_p = ref.ssd_state_pass(cum1, ds1, 128)
+    y_p = ref.ssd_chunk_scan(x, bm, cm, cum, s_prev, 128)
+    y_r, s_r = ref.ssd_scan(x, a, bm, cm, 128)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(cum1.cpu().numpy(), cum_p.cpu().numpy(),
+                               atol=1e-4, rtol=1e-5)
+    for got, want in ((ds1, ds_p), (s_prev, s_prev_p), (s_fin, s_fin_p),
+                      (y, y_p), (y, y_r), (s_fin, s_r)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "granite-20b",
+                                  "qwen2.5-32b", "command-r-35b",
+                                  "kimi-k2-1t-a32b", "granite-moe-1b-a400m",
+                                  "phi-3-vision-4.2b", "mamba2-2.7b",
+                                  "whisper-medium"])
+def test_reduced_family_prefill_card_matches_cpu(card, arch):
+    """Each other family's reduced prefill (f32) on the card through K3 / K4
+    against the plain versions on the CPU, same weights: last-token logits
+    atol 1e-4; then 3 decode steps on both, logits atol 1e-4, which launch
+    neither kernel."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine
+
+    cfg = configs.get(arch).reduced()
+    host = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    on_card.to(card)
+    rng = np.random.RandomState(3)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 100)))
+    batch = {"tokens": toks[:, :96]}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = _t(rng.randn(2, cfg.n_patches, cfg.d_model))
+    if cfg.family == "audio":
+        batch["frames"] = _t(rng.randn(2, 150, cfg.d_model))
+        run = engine.prefill_audio
+        cap = 1024          # 128 decoder slots, 512 cross slots (150 used)
+    else:
+        run = engine.prefill
+        cap = 96 + cfg.n_patches + 8
+    ops.reset_launches()
+    st_c, lg_c = run(cfg, on_card, {n: t.to(card) for n, t in batch.items()},
+                     cap)
+    counts = ops.launch_counts()
+    st_h, lg_h = run(cfg, host, batch, cap)
+    n_attn = {"ssm": 0, "audio": cfg.n_enc_layers + 2 * cfg.n_layers}.get(
+        cfg.family, cfg.n_layers)
+    assert counts["flash_attention"] == n_attn
+    assert counts["ssd"] == (cfg.n_layers if cfg.family == "ssm" else 0)
+    np.testing.assert_allclose(lg_c.cpu().numpy(), lg_h.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    ops.reset_launches()
+    for t in range(96, 99):
+        _, lg_c = engine.decode_step(cfg, on_card, st_c, toks[:, t:t + 1].to(
+            card))
+        _, lg_h = engine.decode_step(cfg, host, st_h, toks[:, t:t + 1])
+        np.testing.assert_allclose(lg_c.cpu().numpy(), lg_h.numpy(),
+                                   atol=1e-4, rtol=1e-4)
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert ops.launch_counts()["ssd"] == 0
 
 # -- the design space and Monte-Carlo paths on the card ---------------------------
 #

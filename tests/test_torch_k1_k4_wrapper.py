@@ -90,7 +90,7 @@ def test_k4_refuses_other_dtypes_before_building(no_build, dtype,
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(dh=32), "head dim"), (dict(nh=3), "groups"), (dict(ds=80), "state"),
+    (dict(dh=32), "head dim"), (dict(nh=3), "groups"), (dict(ds=160), "state"),
 ])
 def test_k4_refuses_unsupported_shapes_before_building(no_build, kw, match):
     with pytest.raises(ValueError, match=match):

@@ -32,7 +32,7 @@ def test_k3_wrapper_refuses_other_dtypes_before_building(no_build, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [16, 48, 96, 256])
+@pytest.mark.parametrize("dh", [16, 48, 80, 256])
 def test_k3_wrapper_refuses_other_head_dims_before_building(no_build, dtype,
                                                             dh):
     with pytest.raises(ValueError, match="head dim"):

@@ -223,3 +223,62 @@ def test_kernel_wrappers_refuse_what_they_cannot_launch():
     with pytest.raises(ValueError, match="not a multiple"):
         t_ops.ssd_scan(x[:, :30], x[:, :30, :, 0], x[:, :30, :1],
                      x[:, :30, :1], chunk=32)
+
+
+# -- the widths of the other LM families -----------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [96, 112])
+def test_flash_attention_phi3_and_kimi_head_dims(dtype, dh):
+    """phi-3-vision's dh 96 and kimi-k2's dh 112 (a GQA group of 8), causal
+    over a ragged 100 queries: the plain K3 against the Pallas kernel."""
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(11, 1, 8, 1, 100, 100, dh, dtype)
+    tol = DTYPES[dtype][2]
+    got = t_ops.flash_attention(qt, kt, vt)
+    pallas = r_ops.flash_attention(qj, kj, vj, bq=64, bk=64, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cross_attention_shape(dtype):
+    """whisper's cross-attention: 40 decoder queries against 150 encoder
+    keys (not a multiple of the kv block), non-causal."""
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(12, 1, 4, 4, 40, 150, 64, dtype)
+    tol = DTYPES[dtype][2]
+    got = t_ops.flash_attention(qt, kt, vt, causal=False)
+    pallas = r_ops.flash_attention(qj, kj, vj, causal=False, bq=64, bk=64,
+                                   interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=tol, rtol=tol)
+    want = r_ref.attention(qj.astype(jnp.float32), kj.astype(jnp.float32),
+                           vj.astype(jnp.float32), causal=False)
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_mamba2_state_width(g):
+    """mamba2-2.7b's ssm_state 128 at its head dim 64, chunk 128: the plain
+    K4 and its three pass twins composed, against the Pallas kernel and the
+    sequential oracle."""
+    b, s, h, dh, ds, chunk = 1, 256, 2, 64, 128, 128
+    (xj, xt), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(13 + g, b, s, h, dh,
+                                                         g, ds)
+    y, s_fin = t_ops.ssd_scan(xt, at, bt, ct, chunk=chunk)
+    cum, dstates = ref.ssd_chunk_states(xt, at, bt, chunk)
+    s_prev, s_fin2 = ref.ssd_state_pass(cum, dstates, chunk)
+    y2 = ref.ssd_chunk_scan(xt, bt, ct, cum, s_prev, chunk)
+    np.testing.assert_allclose(_np(y2), _np(y), atol=1e-4)
+    np.testing.assert_allclose(_np(s_fin2), _np(s_fin), atol=1e-4)
+    rep = h // g
+    xf = jnp.moveaxis(xj, 2, 1).reshape(b * h, s, dh)
+    af = jnp.moveaxis(aj, 2, 1).reshape(b * h, s)
+    bf = jnp.moveaxis(jnp.repeat(bj, rep, 2), 2, 1).reshape(b * h, s, ds)
+    cf = jnp.moveaxis(jnp.repeat(cj, rep, 2), 2, 1).reshape(b * h, s, ds)
+    y_p, s_p = r_ops.ssd_scan(xf, af, bf, cf, chunk=chunk, interpret=True)
+    y_p = jnp.moveaxis(y_p.reshape(b, h, s, dh), 1, 2)
+    np.testing.assert_allclose(_np(y), _np(y_p), atol=1e-4)
+    np.testing.assert_allclose(_np(s_fin), _np(s_p.reshape(b, h, dh, ds)),
+                               atol=1e-4)
+    y_r, s_r = r_ref.ssd(xj, aj, bj, cj)
+    np.testing.assert_allclose(_np(y), _np(y_r), atol=1e-4)
+    np.testing.assert_allclose(_np(s_fin), _np(s_r), atol=1e-4)
