@@ -159,6 +159,26 @@ Phases, in order; any failure exits nonzero before the result line:
    experts cut to 8), kernels against plain versions by phase 7's rule
    (bf16 logits within ``BF16_LOGIT_ULPS``, the argmax off ties; f32
    logits and every state tensor within 1e-4).
+13. Static analysis (``repro_torch.analysis``), after phase 12, on what
+   the earlier phases built (nothing refitted).  Budget pass: every launch
+   of the four kernels in phases 2-12 was recorded by its shapes, which
+   each wrapper hands its launch counter (``kernel_budget.record_launches``
+   turns the collecting on); for each recorded shape the Python
+   mirror's launches (grid, block, dynamic shared memory) must equal the
+   library's own plan, and each kernel instance's registers, static and
+   dynamic shared memory, spills and CTAs per SM are printed, one line per
+   instance; SMEM-BUDGET, REG-BUDGET and REG-SPILL must be waived or
+   absent.  Dispatch pass at the paths' full widths, each entry point once
+   under a dispatch recorder (which also counts the bytes each op copies
+   from the host to the card) and ``set_sync_debug_mode("warn")``: har12's ``circuit`` and ``rbf`` machines on the 1875 test
+   rows with both deciders, the four-member ``rbf`` fleet at a 256-row
+   bucket through ``SVMEngine`` (with the allocator's live allocation
+   count over 100 dispatches of one slot), one streamed Monte-Carlo chunk
+   of balance (phase 9's machine, Sobol, chunk 2048) and balance's rbf CV
+   grid at the fit's settings; per entry point the syncs and HtoD bytes
+   per call are printed, and every finding must be waived.  Last,
+   ``python -m repro_torch.analysis --device cuda --baseline
+   analysis_baseline_torch.json`` must exit 0.
 
 Each phase prints its wall time.  Then it prints the ``kernels`` JSON
 line, the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
@@ -166,7 +186,10 @@ line, the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -1691,6 +1714,7 @@ def fleet_phase(dev, fits: dict, har12_padded) -> dict:
 
     tests = fleet_tests(fits)
     configs, k1_dispatch, burst, mesh_check = [], None, None, None
+    rbf_fleet = None
     with tempfile.TemporaryDirectory() as tmp:
         for target in ("rbf", "circuit"):
             for decider in ("votes", "dag"):
@@ -1712,6 +1736,7 @@ def fleet_phase(dev, fits: dict, har12_padded) -> dict:
                 configs.append(row)
                 if (target, decider) == ("rbf", "votes"):
                     k1_dispatch = k1_fleet_dispatch(fleet, tests)
+                    rbf_fleet = fleet
                 if (target, decider) == ("circuit", "votes"):
                     mesh_check = mesh_d1_equals_unsharded(fleet, tests)
                     burst = overload_burst(fleet, tests)
@@ -1721,7 +1746,8 @@ def fleet_phase(dev, fits: dict, har12_padded) -> dict:
     legs = mc_and_trainer_mesh_d1(fits["balance"], dev, har12_padded)
     log("MESH_D1", json.dumps(dict(serving=mesh_check, **legs)))
     return dict(configs=configs, k1_fleet_dispatch=k1_dispatch,
-                overload=burst, mesh_d1=dict(serving=mesh_check, **legs))
+                overload=burst, mesh_d1=dict(serving=mesh_check, **legs),
+                fleet=rbf_fleet)
 
 
 # ---------------------------------------------------------------------------
@@ -2630,12 +2656,183 @@ def check_small_family_prefill(dev, name: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: static analysis on the card
+# ---------------------------------------------------------------------------
+
+BASELINE_TORCH = ROOT / "analysis_baseline_torch.json"
+
+
+def unwaived(findings, waivers) -> list:
+    """The findings no waiver of the port's baseline covers."""
+    return [f for f in findings if not any(w.covers(f) for w in waivers)]
+
+
+def budget_pass(recorded: dict) -> tuple[dict, list]:
+    """Every recorded kernel call: the mirror = the library's plan (else
+    ``check_calls`` raises), and each instance's attributes, one line per
+    instance.  Returns ``{library: {instance: budget fields}}`` and the
+    findings."""
+    from repro_torch.analysis import kernel_budget
+
+    calls = [(lib, "phases 2-12", args)
+             for lib, seen in recorded.items() for args in sorted(seen)]
+    if {lib for lib, _, _ in calls} != set(kernel_budget.LIBRARIES):
+        raise AssertionError(f"a kernel was not recorded: "
+                             f"{ {k: len(v) for k, v in recorded.items()} }")
+    findings, info = kernel_budget.check_calls(calls, on_card=True)
+    budgets: dict = {lib: {} for lib in kernel_budget.LIBRARIES}
+    for r in info["launches"]:
+        b = budgets[r["library"]].setdefault(r["kernel"], dict(
+            registers=r["registers"], static_smem=r["static_smem"],
+            local_bytes=r["local_bytes"], threads=math.prod(r["block"]),
+            dynamic_smem=set(), ctas_per_sm=set(), shapes=0))
+        b["dynamic_smem"].add(r["dynamic_smem"])
+        b["ctas_per_sm"].add((r["dynamic_smem"], r["ctas_per_sm"]))
+        b["shapes"] += 1
+    for lib, insts in budgets.items():
+        for name, b in sorted(insts.items()):
+            b["dynamic_smem"] = sorted(b["dynamic_smem"])
+            b["ctas_per_sm"] = [c for _, c in sorted(b["ctas_per_sm"])]
+            log(f"BUDGET[{lib}] {name}: {b['registers']} registers x "
+                f"{b['threads']} threads, static {b['static_smem']} B, "
+                f"dynamic {b['dynamic_smem']} B, spills (local) "
+                f"{b['local_bytes']} B, CTAs per SM {b['ctas_per_sm']}, "
+                f"{b['shapes']} launch shapes")
+    log(f"budget pass: {len(calls)} recorded calls, "
+        f"{sum(len(v) for v in budgets.values())} instances, card "
+        f"{info['sm_count']} SMs, {info['smem_optin']} B opt-in")
+    for c in info["fused_vs_oracle"]:
+        log("FUSED-VS-ORACLE", json.dumps(c))
+    return budgets, findings
+
+
+def full_width_entries(dev, fits: dict, har12, fleet) -> list:
+    """Phase 13's dispatch-pass entry points at the paths' full widths."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis.entrypoints import EntryPoint
+    from repro_torch.core import dse, mcstream, trainer
+    from repro_torch.data import datasets
+    from repro_torch.serving import SVMEngine
+
+    api = "src/repro_torch/api/compiled.py"
+    entries = []
+    xq = torch.as_tensor(np.ascontiguousarray(
+        datasets.load("har12").x_test, np.float32), device=dev)
+    for target in ("circuit", "rbf"):
+        votes = har12.deploy(target)
+        dag = har12.deploy(target, decider="dag")
+        entries.append(EntryPoint(f"CompiledMachine.forward[har12 {target}]",
+                                  api, lambda m=votes: m.forward(xq)))
+        entries.append(EntryPoint(
+            f"CompiledMachine._labels_dag[har12 {target}]", api,
+            lambda m=dag: m._labels_dag(xq)))
+
+    tests = fleet_tests(fleet.model_ids)
+    engine = SVMEngine(fleet, max_batch=256, min_bucket=256)
+    engine._order_after_banks()
+    slot = engine._staging[256][0]
+    rng = np.random.RandomState(5)
+    ids = rng.randint(fleet.n_models, size=256)
+    slot.xv[:] = 0.0
+    for r, i in enumerate(ids):
+        pool = tests[fleet.model_ids[i]]
+        slot.xv[r, :pool.shape[1]] = pool[rng.randint(len(pool))]
+    slot.iv[:] = ids
+    entries.append(EntryPoint(
+        "SVMEngine._forward[rbf fleet, bucket 256]",
+        "src/repro_torch/serving/svm_engine.py",
+        lambda: engine._forward(slot), engine=engine))
+
+    est = fits["balance"]
+    ds = datasets.load("balance")
+    sm = est.stream_machine(0, method="sobol", mc_chunk=2048)
+    x64 = torch.as_tensor(ds.x_test[:64], dtype=torch.float32, device=dev)
+    y64 = torch.as_tensor(ds.y_test[:64].astype("int64"), device=dev)
+    a = torch.as_tensor(dse.assignment_from_kernel_map(
+        est.kernel_map_)[None, :].astype("int32"), device=dev)
+    b = sm.mc_chunk
+    v_idx = torch.arange(b, 2 * b, device=dev)
+    u = sm._uniforms(b, b)
+    valid = torch.ones(b, device=dev)
+    state = mcstream.init_stream(1, mcstream.hist_bins(64), dev)
+
+    def chunk():
+        acc, w, lr = sm._chunk_acc(x64, v_idx, a, y64, u)
+        return mcstream.update_stream(state, acc, w, valid, 0.8, log_ref=lr)
+
+    entries.append(EntryPoint("StreamingMCMachine._chunk_bits[balance "
+                              "sobol chunk 2048] + update_stream", api,
+                              chunk))
+
+    padded = trainer.pad_pairs(ds.x_train, ds.y_train, ds.n_classes,
+                               n_folds=5, seed=0)
+    x, y, folds, valid_p = trainer._pair_tensors(padded, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    gammas = torch.as_tensor(trainer.DEFAULT_RBF_GAMMAS, **f32)
+    cs = torch.as_tensor(trainer.DEFAULT_CS, **f32)
+    entries.append(EntryPoint(
+        "trainer._cv_grid_all_pairs[balance rbf, 100 epochs]",
+        "src/repro_torch/core/trainer.py",
+        lambda: trainer._cv_grid_all_pairs(x, y, folds, valid_p, gammas, cs,
+                                           "rbf", 100)))
+    return entries
+
+
+def static_analysis_phase(dev, recorded: dict, fits: dict, har12,
+                          fleet) -> dict:
+    """Phase 13: the budget pass on every recorded launch, the dispatch
+    pass at full width, then the analyzer's own CLI on the card."""
+    from repro_torch.analysis import dispatch_checks
+    from repro_torch.analysis.report import load_baseline
+
+    waivers = load_baseline(str(BASELINE_TORCH))
+    budgets, findings = budget_pass(recorded)
+    rows = []
+    for entry in full_width_entries(dev, fits, har12, fleet):
+        t0 = time.perf_counter()
+        fnds, info = dispatch_checks.run_entrypoint(entry, on_card=True)
+        findings += fnds
+        row = dict(symbol=entry.symbol, syncs=info.get("card_syncs"),
+                   sync_ops=info.get("sync_ops"), f64_ops=info.get("f64_ops"),
+                   aten_ops=info.get("ops"),
+                   htod_bytes_per_call=info.get("htod_bytes_per_call"),
+                   live_allocations_100=(info.get("slot_reuse") or {}).get(
+                       "live_allocations"),
+                   findings=[f"{f.rule}: {f.message}" for f in fnds],
+                   seconds=time.perf_counter() - t0)
+        log("DISPATCH", json.dumps(row))
+        rows.append(row)
+    new = unwaived(findings, waivers)
+    for line in sorted({f"[{'NEW' if f in new else 'waived'}] {f.rule} "
+                        f"{f.path} ({f.symbol}): {f.message}"
+                        for f in findings}):
+        log(line)
+    if new:
+        raise AssertionError(f"{len(new)} unwaived finding(s) in phase 13")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--device", "cuda",
+         "--baseline", str(BASELINE_TORCH)], cwd=ROOT, capture_output=True,
+        text=True, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    summary = (cli.stdout.strip().splitlines() or [""])[-1]
+    log(f"python -m repro_torch.analysis --device cuda: rc {cli.returncode}, "
+        f"{summary} ({time.perf_counter() - t0:.1f} s)")
+    if cli.returncode != 0:
+        log(cli.stdout[-4000:], cli.stderr[-4000:])
+        raise AssertionError("the analyzer's gate failed on the card")
+    return dict(budgets=budgets, dispatch=rows, cli_summary=summary)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.analysis import kernel_budget
     from repro_torch.kernels import build, ops
 
     dev = torch.device("cuda")
@@ -2653,6 +2850,9 @@ def main() -> int:
     for name, text in build.BUILD_LOG.items():
         for kernel, report in ptxas_report(text):
             log(f"ptxas[{name}] {kernel}: {report}")
+    # Phase 13 reads the shapes of every kernel launch of phases 2-12.
+    recording = contextlib.ExitStack()
+    recorded = recording.enter_context(kernel_budget.record_launches())
 
     k2, k2_rows = check_k2(dev)
     log(f"phase 2 (K2): {time.perf_counter() - t0:.1f} s")
@@ -2702,7 +2902,7 @@ def main() -> int:
     if sum(served.values()) < 1 or mesh_k2 < 1:
         raise AssertionError(f"a kernel did not run on the fleet serving "
                              f"path: K1 {served}, K2 {mesh_k2}")
-    del har12, padded
+    del padded
 
     t0 = time.perf_counter()
     check_small_input(dev)
@@ -2729,6 +2929,13 @@ def main() -> int:
     for name in SMALL_PREFILLS:
         check_small_family_prefill(dev, name)
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    recording.close()
+
+    t0 = time.perf_counter()
+    analysis = static_analysis_phase(dev, recorded, fitted, har12,
+                                     serving["fleet"])
+    del har12
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
     k3_paths = {"hymba-1.5b": serve_counts["flash_attention"],
                 **{r["arch"]: r["k3_launches"] for r in family_rows.values()}}
     k4_paths = {"hymba-1.5b": serve_counts["ssd"],
@@ -2744,6 +2951,7 @@ def main() -> int:
                      r["dtype"] == "bfloat16")
     kernels = [
         dict(name="kernel_matrix", route="cuda",
+             budget=analysis["budgets"]["kernel_matrix"],
              source="src/repro_torch/kernels/csrc/kernel_matrix.cu",
              replaces="src/repro/kernels/rbf.py:110",
              design="no shared memory: 4 support vectors per thread in "
@@ -2767,6 +2975,7 @@ def main() -> int:
              fleet_dispatch=dict(serving["k1_fleet_dispatch"],
                                  served_launches=sum(served.values()))),
         dict(name="solver", route="cuda",
+             budget=analysis["budgets"]["solver"],
              source="src/repro_torch/kernels/csrc/solver.cu",
              replaces="src/repro/kernels/solver.py:126",
              design="one warp per lane; the lanes of a (pair, gamma) share "
@@ -2783,6 +2992,7 @@ def main() -> int:
                          "beyond_tolerance", "f64_drift")}
                  for r in k2_rows if r["name"].startswith("har12/")}),
         dict(name="flash_attention", route="cuda",
+             budget=analysis["budgets"]["flash_attention"],
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:90",
              design="bf16: flash_wgmma_kernel (TMA + mbarrier ring + wgmma, "
@@ -2804,6 +3014,7 @@ def main() -> int:
                  "library_ms", "max_abs_err", "rel_l2")}
                  for r in k3_family_rows}),
         dict(name="ssd", route="cuda",
+             budget=analysis["budgets"]["ssd"],
              source="src/repro_torch/kernels/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd.py:83",
              design="chunk-parallel: chunk states over every (batch, "

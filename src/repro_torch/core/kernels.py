@@ -106,8 +106,10 @@ def _uniform_interp(v, curve, lo, hi, left, right, inv_step):
     ``left``/``right``.  Tracks ``interp`` to ~1e-6.
     """
     n_seg = curve.shape[0] - 1
-    u = (v - lo) * torch.as_tensor(inv_step, dtype=torch.float32,
-                                   device=v.device)
+    # The step rounded to f32 and passed as a Python scalar: the same f32
+    # product as a 0-d f32 tensor, without that tensor's blocking host ->
+    # device copy (a sync on a card) at every call.
+    u = (v - lo) * float(np.float32(inv_step))
     i = torch.clamp(torch.floor(u).to(torch.int32), 0, n_seg - 1).long()
     t = u - i.to(torch.float32)
     f0 = curve[i]

@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 #: kernel library name -> its translation unit (headers are shared).
 SOURCES = {"kernel_matrix": "kernel_matrix.cu", "solver": "solver.cu",
            "flash_attention": "flash_attention.cu", "ssd": "ssd.cu"}
-HEADERS = ("tiles.cuh",)
+HEADERS = ("tiles.cuh", "budget.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,11 +45,21 @@ BUILD_LOG: dict[str, str] = {}
 
 
 class LaunchCounter:
-    """Launches of one hand kernel: the wrapper adds one per launch."""
+    """Launches of one hand kernel: the wrapper calls :meth:`launched` once
+    per launch, with the shape arguments of the library's plan query
+    (``csrc/budget.cuh``).  ``shapes`` is ``None`` unless a caller (the
+    static analyzer's ``kernel_budget.record_launches``) sets it to a set,
+    which then collects the shape of every launch."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.shapes: set | None = None
+
+    def launched(self, shape: tuple) -> None:
+        self.count += 1
+        if self.shapes is not None:
+            self.shapes.add(shape)
 
 
 def _nvcc() -> str:
@@ -114,31 +124,44 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-#: C signatures: every pointer and the stream as c_void_p (64-bit).
+#: C signatures: every pointer and the stream as c_void_p (64-bit).  Each
+#: entry: the library's prefix, its launch function and that function's
+#: argument types, and the argument count of its plan query before the two
+#: output pointers (``csrc/budget.cuh``).
 _SIGNATURES = {
     "kernel_matrix": ("k1", "k1_kernel_matrix",
-                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P]),
+                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P], 5),
     "solver": ("k2", "k2_solve_lanes",
                [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                _F, _F, _F, _P]),
+                _F, _F, _F, _P], 6),
     "flash_attention": ("k3", "k3_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _P]),
+                         _I, _P], 7),
     "ssd": ("k4", "k4_ssd_scan",
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-             _P]),
+             _P], 8),
 }
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    prefix, fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    err = getattr(lib, f"{prefix}_error_string")
-    err.argtypes = [_I]
-    err.restype = ctypes.c_char_p
+    prefix, fn_name, argtypes, n_plan_args = _SIGNATURES[name]
+    int_p = ctypes.POINTER(_I)
+    for sym, args, res in (
+            (fn_name, argtypes, _I),
+            (f"{prefix}_error_string", [_I], ctypes.c_char_p),
+            (f"{prefix}_plan", [_I] * n_plan_args + [int_p, int_p], _I),
+            (f"{prefix}_instances", [], _I),
+            (f"{prefix}_instance_name", [_I], ctypes.c_char_p),
+            (f"{prefix}_attributes", [_I, _I, _I, int_p], _I)):
+        fn = getattr(lib, sym)
+        fn.argtypes = args
+        fn.restype = res
     return lib
+
+
+def c_prefix(name: str) -> str:
+    """The C prefix of library ``name`` (``k1`` .. ``k4``)."""
+    return _SIGNATURES[name][0]
 
 
 def check(lib: ctypes.CDLL, prefix: str, rc: int) -> None:

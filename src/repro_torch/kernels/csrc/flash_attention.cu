@@ -63,6 +63,10 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "budget.cuh"
+
 namespace repro_torch {
 namespace {
 
@@ -732,18 +736,44 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// Instance index of head dim DH within a dtype's five instances.
+template <int DH>
+constexpr int dh_index() {
+  return DH == 32 ? 0 : DH == 64 ? 1 : DH == 96 ? 2 : DH == 112 ? 3 : 4;
+}
+
+#define K3_INSTANCE(KERNEL, DH)                                           \
+  {reinterpret_cast<const void*>(KERNEL<DH>), #KERNEL "<" #DH ">"}
+// f32 (flash_kernel) then bf16 (flash_wgmma_kernel), each at dh 32, 64,
+// 96, 112, 128.
+const KernelInstance kK3Instances[] = {
+    K3_INSTANCE(flash_kernel, 32),        K3_INSTANCE(flash_kernel, 64),
+    K3_INSTANCE(flash_kernel, 96),        K3_INSTANCE(flash_kernel, 112),
+    K3_INSTANCE(flash_kernel, 128),       K3_INSTANCE(flash_wgmma_kernel, 32),
+    K3_INSTANCE(flash_wgmma_kernel, 64),  K3_INSTANCE(flash_wgmma_kernel, 96),
+    K3_INSTANCE(flash_wgmma_kernel, 112), K3_INSTANCE(flash_wgmma_kernel, 128),
+};
+#undef K3_INSTANCE
+
+template <int DH>
+LaunchPlan plan_f32(int b, int hq, int sq) {
+  return LaunchPlan{dh_index<DH>(),
+                    dim3((sq + kBlockQ - 1) / kBlockQ, b * hq), dim3(kThreads),
+                    sizeof(float) * smem_floats<DH>()};
+}
+
 template <int DH>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                int hq, int hkv, int sq, int skv, int causal, int window,
                int q_offset, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<DH>();
+  const LaunchPlan p = plan_f32<DH>(b, hq, sq);
+  const size_t smem = p.smem;
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, b * hq);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));
-  flash_kernel<DH><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<DH><<<p.grid, p.block, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), hq / hkv, sq, skv,
       causal, window, q_offset, scale);
@@ -796,10 +826,18 @@ int make_map(CUtensorMap* map, const void* base, int heads, int rows, int dh,
 }
 
 template <int DH>
+LaunchPlan plan_bf16(int b, int hq, int sq) {
+  return LaunchPlan{5 + dh_index<DH>(),
+                    dim3(b * hq, (sq + kTcBlockQ - 1) / kTcBlockQ),
+                    dim3(kTcThreads), static_cast<size_t>(TcLayout<DH>::kSmem)};
+}
+
+template <int DH>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
                 int hq, int hkv, int sq, int skv, int causal, int window,
                 int q_offset, cudaStream_t stream) {
   using L = TcLayout<DH>;
+  const LaunchPlan p = plan_bf16<DH>(b, hq, sq);
   const CUtensorMapSwizzle sw = L::kSwizzle;
   CUtensorMap q_map, k_map, v_map;
   int rc = make_map(&q_map, q, b * hq, sq, DH, kTcBlockQ, L::kAtomCols, sw);
@@ -808,37 +846,36 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kSmem);
+      static_cast<int>(p.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b * hq, (sq + kTcBlockQ - 1) / kTcBlockQ);
   const double scale = 1.0 / sqrt(static_cast<double>(DH));
   const float scale_log2 = static_cast<float>(scale * 1.4426950408889634);
-  flash_wgmma_kernel<DH><<<grid, kTcThreads, L::kSmem, stream>>>(
+  flash_wgmma_kernel<DH><<<p.grid, p.block, p.smem, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), hq / hkv, sq, skv,
       causal, window, q_offset, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-#define REPRO_K3_DISPATCH(FN)                                                 \
-  switch (dh) {                                                               \
-    case 32:                                                                  \
-      return FN<32>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,          \
-                    q_offset, s);                                             \
-    case 64:                                                                  \
-      return FN<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,          \
-                    q_offset, s);                                             \
-    case 96:                                                                  \
-      return FN<96>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,          \
-                    q_offset, s);                                             \
-    case 112:                                                                 \
-      return FN<112>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,         \
-                     q_offset, s);                                            \
-    case 128:                                                                 \
-      return FN<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,         \
-                     q_offset, s);                                            \
-    default:                                                                  \
-      return static_cast<int>(cudaErrorInvalidValue);                         \
+// f(DH) at a head dim the kernels are instantiated at, DH as a
+// std::integral_constant; cudaErrorInvalidValue for any other.  The
+// launch and the plan query both go through it.
+template <typename F>
+int with_head_dim(int dh, F&& f) {
+  switch (dh) {
+    case 32:
+      return f(std::integral_constant<int, 32>{});
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 96:
+      return f(std::integral_constant<int, 96>{});
+    case 112:
+      return f(std::integral_constant<int, 112>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+}
 
 }  // namespace
 }  // namespace repro_torch
@@ -863,16 +900,45 @@ int k3_flash_attention(const void* q, const void* k, const void* v, void* o,
   }
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    REPRO_K3_DISPATCH(launch_f32)
+    return with_head_dim(dh, [&](auto d) {
+      return launch_f32<decltype(d)::value>(q, k, v, o, b, hq, hkv, sq, skv,
+                                            causal, window, q_offset, s);
+    });
   }
   if (dtype == 1) {
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v)) % 16 != 0) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
-    REPRO_K3_DISPATCH(launch_bf16)
+    return with_head_dim(dh, [&](auto d) {
+      return launch_bf16<decltype(d)::value>(q, k, v, o, b, hq, hkv, sq, skv,
+                                             causal, window, q_offset, s);
+    });
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launches k3_flash_attention makes for these shapes (none or one),
+// as kPlanInts ints each; budget.cuh says what they hold.
+int k3_plan(int dtype, int b, int hq, int hkv, int sq, int skv, int dh,
+            int* out, int* n_launches) {
+  using namespace repro_torch;
+  *n_launches = 0;
+  if (b <= 0 || hq <= 0 || sq <= 0) return 0;
+  if (hkv <= 0 || hq % hkv != 0 || skv <= 0 || b * hq > 65535 ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LaunchPlan p;
+  const int rc = with_head_dim(dh, [&](auto d) {
+    constexpr int DH = decltype(d)::value;
+    p = dtype == 0 ? plan_f32<DH>(b, hq, sq) : plan_bf16<DH>(b, hq, sq);
+    return 0;
+  });
+  if (rc != 0) return rc;
+  write_plan(p, out);
+  *n_launches = 1;
+  return 0;
 }
 
 const char* k3_error_string(int code) {
@@ -886,3 +952,5 @@ const char* k3_error_string(int code) {
 }
 
 }  // extern "C"
+
+REPRO_INSTANCE_QUERIES(k3, kK3Instances)

@@ -33,6 +33,7 @@
 
 #include <cstdint>
 
+#include "budget.cuh"
 #include "tiles.cuh"
 
 namespace repro_torch {
@@ -163,36 +164,59 @@ kernel_matrix_kernel(const float* __restrict__ x,
   }
 }
 
-template <int KIND>
-cudaError_t launch_kind(const float* x, const float* sv, const float* gamma,
-                        float* out, int n_pairs, int n, int m, int d,
-                        int vec, Sech2Consts c, cudaStream_t stream) {
+// The instances in the order plan() indexes them: rbf then sech2, each
+// with D = 0 (d read in place) then D = 1 .. 5.
+constexpr int kUnrolledD = 5;
+#define K1_INSTANCE(KIND, DD)                                            \
+  {reinterpret_cast<const void*>(kernel_matrix_kernel<KIND, DD>),       \
+   "kernel_matrix_kernel<" #KIND ", " #DD ">"}
+const KernelInstance kK1Instances[] = {
+    K1_INSTANCE(kRbf, 0),   K1_INSTANCE(kRbf, 1),   K1_INSTANCE(kRbf, 2),
+    K1_INSTANCE(kRbf, 3),   K1_INSTANCE(kRbf, 4),   K1_INSTANCE(kRbf, 5),
+    K1_INSTANCE(kSech2, 0), K1_INSTANCE(kSech2, 1), K1_INSTANCE(kSech2, 2),
+    K1_INSTANCE(kSech2, 3), K1_INSTANCE(kSech2, 4), K1_INSTANCE(kSech2, 5),
+};
+#undef K1_INSTANCE
+
+struct K1Plan {
+  LaunchPlan launch;
+  int rows;   // query rows per thread
+};
+
+// The one launch of a (kind, P, n, m, d) call: query rows per thread are
+// halved while the grid would not fill the card.
+K1Plan plan(int kind, int n_pairs, int n, int m, int d) {
   const int col_tiles = (m + kTx * kCols - 1) / (kTx * kCols);
-  int rows = kMaxRows;   // halved while the grid would not fill the card
+  int rows = kMaxRows;
   while (rows > 1 && static_cast<long long>(col_tiles) * n_pairs *
                              ((n + kTy * rows - 1) / (kTy * rows)) <
                          kFillCtas) {
     rows /= 2;
   }
-  const dim3 block(kTx, kTy);
-  const dim3 grid(col_tiles, (n + kTy * rows - 1) / (kTy * rows), n_pairs);
-  switch (d) {
-#define K1_CASE(DD)                                                      \
-  case DD:                                                               \
-    kernel_matrix_kernel<KIND, DD><<<grid, block, 0, stream>>>(         \
-        x, sv, gamma, out, n, m, d, rows, vec, c);                       \
-    break;
-    K1_CASE(1)
-    K1_CASE(2)
-    K1_CASE(3)
-    K1_CASE(4)
-    K1_CASE(5)
-#undef K1_CASE
-    default:
-      kernel_matrix_kernel<KIND, 0><<<grid, block, 0, stream>>>(
-          x, sv, gamma, out, n, m, d, rows, vec, c);
-  }
-  return cudaGetLastError();
+  K1Plan p;
+  p.launch.instance =
+      (kind == kRbf ? 0 : kUnrolledD + 1) + (d <= kUnrolledD ? d : 0);
+  p.launch.grid = dim3(col_tiles, (n + kTy * rows - 1) / (kTy * rows),
+                       n_pairs);
+  p.launch.block = dim3(kTx, kTy);
+  p.launch.smem = 0;
+  p.rows = rows;
+  return p;
+}
+
+// Launch the instance, grid and block that plan() returns: every instance
+// takes the same arguments, so the launch goes through the table.
+cudaError_t launch(const float* x, const float* sv, const float* gamma,
+                   float* out, int kind, int n_pairs, int n, int m, int d,
+                   int vec, Sech2Consts c, cudaStream_t stream) {
+  const K1Plan p = plan(kind, n_pairs, n, m, d);
+  int rows = p.rows;
+  void* args[] = {&x, &sv, &gamma, &out, &n, &m, &d, &rows, &vec, &c};
+  const cudaError_t err =
+      cudaLaunchKernel(kK1Instances[p.launch.instance].fn, p.launch.grid,
+                       p.launch.block, args, p.launch.smem, stream);
+  const cudaError_t last = cudaGetLastError();   // clears a refused launch
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
@@ -201,7 +225,7 @@ cudaError_t launch_kind(const float* x, const float* sv, const float* gamma,
 extern "C" {
 
 // Launch K1 on `stream`.  All tensors contiguous f32 on the device.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns the launch's CUDA error code (0 on success).
 int k1_kernel_matrix(const float* x, const float* sv, const float* gamma,
                      float* out, int n_pairs, int n, int m, int d, int kind,
                      float gamma0, float v_scale, float nvt, void* stream) {
@@ -214,13 +238,23 @@ int k1_kernel_matrix(const float* x, const float* sv, const float* gamma,
   const int vec = (m % 4 == 0 && addr % 16 == 0) ? 4
                   : (m % 2 == 0 && addr % 8 == 0) ? 2 : 1;
   const Sech2Consts c{gamma0, v_scale, nvt};
-  auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      kind == kRbf
-          ? launch_kind<kRbf>(x, sv, gamma, out, n_pairs, n, m, d, vec, c, st)
-          : launch_kind<kSech2>(x, sv, gamma, out, n_pairs, n, m, d, vec, c,
-                                st);
-  return static_cast<int>(err);
+  return static_cast<int>(launch(x, sv, gamma, out, kind, n_pairs, n, m, d,
+                                 vec, c, static_cast<cudaStream_t>(stream)));
+}
+
+// The launches k1_kernel_matrix makes for these shapes (none or one), as
+// kPlanInts ints each; budget.cuh says what they hold.
+int k1_plan(int n_pairs, int n, int m, int d, int kind, int* out,
+            int* n_launches) {
+  using namespace repro_torch;
+  *n_launches = 0;
+  if (n_pairs <= 0 || n <= 0 || m <= 0) return 0;
+  if (d <= 0 || (kind != kRbf && kind != kSech2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  write_plan(plan(kind, n_pairs, n, m, d).launch, out);
+  *n_launches = 1;
+  return 0;
 }
 
 const char* k1_error_string(int code) {
@@ -228,3 +262,5 @@ const char* k1_error_string(int code) {
 }
 
 }  // extern "C"
+
+REPRO_INSTANCE_QUERIES(k1, kK1Instances)

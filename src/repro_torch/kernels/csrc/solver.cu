@@ -48,6 +48,7 @@
 
 #include <algorithm>
 
+#include "budget.cuh"
 #include "tiles.cuh"
 
 namespace repro_torch {
@@ -293,38 +294,77 @@ int sm_count() {
   return count;
 }
 
-template <int KIND>
-int launch(const float* x, const float* y, const float* c_box,
-           const float* gamma, const float* gram, float* alpha_out,
-           float* f_out, int n_pairs, int n_gamma, int n_lanes, int n, int d,
-           int n_epochs, Sech2Consts consts, cudaStream_t stream) {
+const KernelInstance kK2Instances[] = {
+    {reinterpret_cast<const void*>(solver_kernel<kLinear>),
+     "solver_kernel<kLinear>"},
+    {reinterpret_cast<const void*>(solver_kernel<kRbf>), "solver_kernel<kRbf>"},
+    {reinterpret_cast<const void*>(solver_kernel<kSech2>),
+     "solver_kernel<kSech2>"},
+    {reinterpret_cast<const void*>(solver_kernel<kGram>),
+     "solver_kernel<kGram>"},
+};
+
+struct K2Plan {
+  LaunchPlan launch;
+  int per_cta, n_pad, chunk;
+};
+
+// The one launch of a call on a card with `sms` SMs and `max_smem` bytes
+// of opt-in shared memory per block; cudaErrorInvalidValue when not one
+// lane's column fits beside the slabs.
+int plan(int kind, int n_pairs, int n_gamma, int n_lanes, int n, int d,
+         int max_smem, int sms, K2Plan* out) {
   const int n_pad = (n + kBlock - 1) / kBlock * kBlock;
   const int chunk = min(n_pad, kMaxChunk);
-  const bool tiles = KIND != kGram;
+  const bool tiles = kind != kGram;
   const size_t fixed_floats = 2 * kBlock * static_cast<size_t>(chunk + 4) +
                               n_pad + (tiles ? static_cast<size_t>(d + 1) * n_pad : 0);
-  int max_smem = 0, dev = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const long long room = max_smem / 4 - static_cast<long long>(fixed_floats);
   const int lanes_fit = static_cast<int>(
       std::min<long long>(room / n_pad, kMaxLanesPerCta));
   if (lanes_fit < 1) return static_cast<int>(cudaErrorInvalidValue);
   // Split each (p, g) cell's lanes into equal CTAs that fill the SMs once.
   const int cells = n_pairs * n_gamma;
-  const int ctas_per_cell = std::max(1, std::min(n_lanes, sm_count() / cells));
+  const int ctas_per_cell = std::max(1, std::min(n_lanes, sms / cells));
   int per_cta = std::min((n_lanes + ctas_per_cell - 1) / ctas_per_cell, lanes_fit);
   const int groups = (n_lanes + per_cta - 1) / per_cta;
   per_cta = (n_lanes + groups - 1) / groups;
-  const size_t smem = sizeof(float) * (fixed_floats + static_cast<size_t>(per_cta) * n_pad);
+  out->launch.instance = kind;
+  out->launch.grid = dim3(groups, n_gamma, n_pairs);
+  out->launch.block = dim3(kCtaThreads);
+  out->launch.smem = sizeof(float) * (fixed_floats + static_cast<size_t>(per_cta) * n_pad);
+  out->per_cta = per_cta;
+  out->n_pad = n_pad;
+  out->chunk = chunk;
+  return 0;
+}
+
+// The plan of a call on the current device.
+int device_plan(int kind, int n_pairs, int n_gamma, int n_lanes, int n,
+                int d, K2Plan* out) {
+  int max_smem = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return plan(kind, n_pairs, n_gamma, n_lanes, n, d, max_smem, sm_count(),
+              out);
+}
+
+template <int KIND>
+int launch(const float* x, const float* y, const float* c_box,
+           const float* gamma, const float* gram, float* alpha_out,
+           float* f_out, int n_pairs, int n_gamma, int n_lanes, int n, int d,
+           int n_epochs, Sech2Consts consts, cudaStream_t stream) {
+  K2Plan p;
+  const int rc = device_plan(KIND, n_pairs, n_gamma, n_lanes, n, d, &p);
+  if (rc != 0) return rc;
+  const size_t smem = p.launch.smem;
   cudaError_t err = cudaFuncSetAttribute(
       solver_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(groups, n_gamma, n_pairs);
-  solver_kernel<KIND><<<grid, kCtaThreads, smem, stream>>>(
-      x, y, c_box, gamma, gram, alpha_out, f_out, n_gamma, n_lanes, per_cta,
-      n, n_pad, d, chunk, n_epochs, consts);
+  solver_kernel<KIND><<<p.launch.grid, p.launch.block, smem, stream>>>(
+      x, y, c_box, gamma, gram, alpha_out, f_out, n_gamma, n_lanes, p.per_cta,
+      n, p.n_pad, d, p.chunk, n_epochs, consts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,8 +406,30 @@ int k2_solve_lanes(const float* x, const float* y, const float* c_box,
   }
 }
 
+// The launches k2_solve_lanes makes for these shapes on the current
+// device (none or one), as kPlanInts ints each; budget.cuh says what they
+// hold.
+int k2_plan(int n_pairs, int n_gamma, int n_lanes, int n, int d, int kind,
+            int* out, int* n_launches) {
+  using namespace repro_torch;
+  *n_launches = 0;
+  if (n_pairs <= 0 || n_gamma <= 0 || n_lanes <= 0 || n <= 0) return 0;
+  if (kind < kLinear || kind > kGram || (kind != kGram && d <= 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  K2Plan p;
+  const int rc = device_plan(kind, n_pairs, n_gamma, n_lanes, n,
+                             kind == kGram ? 0 : d, &p);
+  if (rc != 0) return rc;
+  write_plan(p.launch, out);
+  *n_launches = 1;
+  return 0;
+}
+
 const char* k2_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"
+
+REPRO_INSTANCE_QUERIES(k2, kK2Instances)

@@ -66,6 +66,10 @@
 //   128), x and B * exp(cum_L - cum) staged in ~97 KB.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "budget.cuh"
+
 namespace repro_torch {
 namespace {
 
@@ -434,57 +438,96 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Instances: pass 1 (chunk states) then pass 3 (chunk scan), each at dh
+// 16 then 64 and ds 8, 16, 32, 64, 128; last the state pass.
+constexpr int kDsWidths = 5;
+#define K4_INSTANCE(KERNEL, DH, DS)                                         \
+  {reinterpret_cast<const void*>(KERNEL<DH, DS>),                           \
+   #KERNEL "<" #DH ", " #DS ">"}
+#define K4_WIDTHS(KERNEL, DH)                                               \
+  K4_INSTANCE(KERNEL, DH, 8), K4_INSTANCE(KERNEL, DH, 16),                  \
+      K4_INSTANCE(KERNEL, DH, 32), K4_INSTANCE(KERNEL, DH, 64),             \
+      K4_INSTANCE(KERNEL, DH, 128)
+const KernelInstance kK4Instances[] = {
+    K4_WIDTHS(ssd_chunk_state_kernel, 16),
+    K4_WIDTHS(ssd_chunk_state_kernel, 64),
+    K4_WIDTHS(ssd_chunk_scan_kernel, 16),
+    K4_WIDTHS(ssd_chunk_scan_kernel, 64),
+    {reinterpret_cast<const void*>(ssd_state_pass_kernel),
+     "ssd_state_pass_kernel"},
+};
+#undef K4_WIDTHS
+#undef K4_INSTANCE
+
+template <int DH, int DS>
+constexpr int width_index() {
+  return (DH == 16 ? 0 : kDsWidths) +
+         (DS == 8 ? 0 : DS == 16 ? 1 : DS == 32 ? 2 : DS == 64 ? 3 : 4);
+}
+
+// The three launches of a call (the first alone with chunk_states_only):
+// chunk states, state pass, chunk scan.
+template <int DH, int DS>
+int plan(int b, int s, int nh, int ds, int chunk, bool chunk_states_only,
+         LaunchPlan* out) {
+  const int tiles = b * (s / chunk) * nh;
+  out[0] = LaunchPlan{width_index<DH, DS>(), dim3(tiles), dim3(kThreads),
+                      state_smem(DH, DS, chunk)};
+  if (chunk_states_only) return 1;
+  const long long n_state = static_cast<long long>(b) * nh * DH * ds;
+  out[1] = LaunchPlan{4 * kDsWidths,
+                      dim3(static_cast<int>((n_state + kThreads - 1) /
+                                            kThreads)),
+                      dim3(kThreads), 0};
+  out[2] = LaunchPlan{2 * kDsWidths + width_index<DH, DS>(), dim3(tiles),
+                      dim3(kThreads), scan_smem(DH, DS, chunk)};
+  return 3;
+}
+
 template <int DH, int DS>
 int launch(const float* x, const float* a, const float* bm, const float* cm,
            float* y, float* sfin, float* cum, float* states, int b, int s,
            int nh, int g, int ds, int chunk, bool chunk_states_only,
            cudaStream_t stream) {
   const int nc = s / chunk;
-  const int tiles = b * nc * nh;
-  const size_t smem1 = state_smem(DH, DS, chunk);
-  cudaError_t err = allow_smem(ssd_chunk_state_kernel<DH, DS>, smem1);
+  LaunchPlan p[3];
+  plan<DH, DS>(b, s, nh, ds, chunk, chunk_states_only, p);
+  cudaError_t err = allow_smem(ssd_chunk_state_kernel<DH, DS>, p[0].smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_state_kernel<DH, DS><<<tiles, kThreads, smem1, stream>>>(
+  ssd_chunk_state_kernel<DH, DS><<<p[0].grid, p[0].block, p[0].smem, stream>>>(
       x, a, bm, cum, states, s, nh, g, ds, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess || chunk_states_only) return static_cast<int>(err);
 
   const int per = DH * ds;
-  const long long n_state = static_cast<long long>(b) * nh * per;
-  ssd_state_pass_kernel<<<static_cast<int>((n_state + kThreads - 1) /
-                                           kThreads),
-                          kThreads, 0, stream>>>(cum, states, sfin, b * nh,
-                                                 nc, s, chunk, per);
+  ssd_state_pass_kernel<<<p[1].grid, p[1].block, p[1].smem, stream>>>(
+      cum, states, sfin, b * nh, nc, s, chunk, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem3 = scan_smem(DH, DS, chunk);
-  err = allow_smem(ssd_chunk_scan_kernel<DH, DS>, smem3);
+  err = allow_smem(ssd_chunk_scan_kernel<DH, DS>, p[2].smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_scan_kernel<DH, DS><<<tiles, kThreads, smem3, stream>>>(
+  ssd_chunk_scan_kernel<DH, DS><<<p[2].grid, p[2].block, p[2].smem, stream>>>(
       x, bm, cm, cum, states, y, s, nh, g, ds, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
-int launch_dh(const float* x, const float* a, const float* bm,
-              const float* cm, float* y, float* sfin, float* cum,
-              float* states, int b, int s, int nh, int g, int ds, int chunk,
-              bool chunk_states_only, cudaStream_t st) {
-  if (ds <= 8)
-    return launch<DH, 8>(x, a, bm, cm, y, sfin, cum, states, b, s, nh, g, ds,
-                         chunk, chunk_states_only, st);
-  if (ds <= 16)
-    return launch<DH, 16>(x, a, bm, cm, y, sfin, cum, states, b, s, nh, g,
-                          ds, chunk, chunk_states_only, st);
-  if (ds <= 32)
-    return launch<DH, 32>(x, a, bm, cm, y, sfin, cum, states, b, s, nh, g,
-                          ds, chunk, chunk_states_only, st);
-  if (ds <= 64)
-    return launch<DH, 64>(x, a, bm, cm, y, sfin, cum, states, b, s, nh, g,
-                          ds, chunk, chunk_states_only, st);
-  return launch<DH, 128>(x, a, bm, cm, y, sfin, cum, states, b, s, nh, g, ds,
-                         chunk, chunk_states_only, st);
+// f(DH, DS) at the instance a call with (dh, ds) takes, DH and DS as
+// std::integral_constant: ds is padded to 8, 16, 32, 64 or 128 columns;
+// cudaErrorInvalidValue for a dh with no instance.  The launch and the
+// plan query both go through it.
+template <typename F>
+int with_shape(int dh, int ds, F&& f) {
+  auto widths = [&](auto d) {
+    if (ds <= 8) return f(d, std::integral_constant<int, 8>{});
+    if (ds <= 16) return f(d, std::integral_constant<int, 16>{});
+    if (ds <= 32) return f(d, std::integral_constant<int, 32>{});
+    if (ds <= 64) return f(d, std::integral_constant<int, 64>{});
+    return f(d, std::integral_constant<int, 128>{});
+  };
+  if (dh == 16) return widths(std::integral_constant<int, 16>{});
+  if (dh == 64) return widths(std::integral_constant<int, 64>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -514,16 +557,33 @@ int k4_ssd_scan(const float* x, const float* a, const float* bm,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16:
-      return launch_dh<16>(x, a, bm, cm, y, sfin, cum, states, b, s, nh, g,
-                           ds, chunk, chunk_states_only, st);
-    case 64:
-      return launch_dh<64>(x, a, bm, cm, y, sfin, cum, states, b, s, nh, g,
-                           ds, chunk, chunk_states_only, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  return with_shape(dh, ds, [&](auto d, auto w) {
+    return launch<decltype(d)::value, decltype(w)::value>(
+        x, a, bm, cm, y, sfin, cum, states, b, s, nh, g, ds, chunk,
+        chunk_states_only != 0, st);
+  });
+}
+
+// The launches k4_ssd_scan makes for these shapes (none, one or three),
+// as kPlanInts ints each; budget.cuh says what they hold.
+int k4_plan(int b, int s, int nh, int g, int dh, int ds, int chunk,
+            int chunk_states_only, int* out, int* n_launches) {
+  using namespace repro_torch;
+  *n_launches = 0;
+  if (b <= 0 || nh <= 0) return 0;
+  if (g <= 0 || nh % g != 0 || ds <= 0 || ds > 128 || chunk <= 0 ||
+      chunk % 32 != 0 || chunk > kMaxChunk || s <= 0 || s % chunk != 0 ||
+      (dh != 16 && dh != 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  LaunchPlan p[3];
+  const int n = with_shape(dh, ds, [&](auto d, auto w) {
+    return plan<decltype(d)::value, decltype(w)::value>(
+        b, s, nh, ds, chunk, chunk_states_only != 0, p);
+  });
+  for (int i = 0; i < n; ++i) write_plan(p[i], out + i * kPlanInts);
+  *n_launches = n;
+  return 0;
 }
 
 const char* k4_error_string(int code) {
@@ -531,3 +591,5 @@ const char* k4_error_string(int code) {
 }
 
 }  // extern "C"
+
+REPRO_INSTANCE_QUERIES(k4, kK4Instances)

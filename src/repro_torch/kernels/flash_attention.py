@@ -76,6 +76,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             DTYPES[q.dtype], b, hq, hkv, sq, skv, dh, int(causal),
             -1 if window is None else int(window), int(q_offset), stream)
     build.check(lib, "k3", rc)
-    LAUNCHES.count += 1
+    LAUNCHES.launched((DTYPES[q.dtype], b, hq, hkv, sq, skv, dh))
     (LAUNCHES_TC if q.dtype == torch.bfloat16 else LAUNCHES_F32).count += 1
     return out

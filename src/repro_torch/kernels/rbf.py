@@ -78,5 +78,5 @@ def kernel_matrix_cuda(x: torch.Tensor, sv: torch.Tensor,
                       gamma.data_ptr(), out.data_ptr(), p, n, m, d, code,
                       *sech2_consts(n_slope, v_t, v_scale))
     build.check(lib, "k1", rc)
-    LAUNCHES.count += 1
+    LAUNCHES.launched((p, n, m, d, code))
     return out

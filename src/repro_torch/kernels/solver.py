@@ -53,7 +53,7 @@ def _launch(x, y, c_box, gamma, gram, kind_code, p, g, l, n, d, n_epochs,
             alpha.data_ptr(), f.data_ptr(), p, g, l, n, d, kind_code,
             int(n_epochs), *consts, stream)
     build.check(lib, "k2", rc)
-    LAUNCHES.count += 1
+    LAUNCHES.launched((p, g, l, n, d, kind_code))
     return alpha, f
 
 

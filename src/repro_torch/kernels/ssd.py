@@ -86,7 +86,7 @@ def ssd_passes_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
         states.data_ptr(), b, s, nh, g, dh, ds, chunk,
         int(chunk_states_only))
     build.check(lib, "k4", rc)
-    LAUNCHES.count += 1
+    LAUNCHES.launched((b, s, nh, g, dh, ds, chunk, int(chunk_states_only)))
     return y, s_fin, cum, states
 
 

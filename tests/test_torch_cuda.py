@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import kernel_budget
 from repro_torch.kernels import flash_attention, rbf, ref, solver, ssd
 
 
@@ -849,3 +850,97 @@ def test_mesh_legs_on_one_card_equal_the_unsharded_paths(card):
                                          devices=[card] * n))
         assert ops.launch_counts()["solver"] == n
         np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The analyzer's kernel-budget pass against the libraries themselves
+# ---------------------------------------------------------------------------
+
+#: Threads per CTA of each kernel family (the launches' blocks).
+BUDGET_THREADS = {"kernel_matrix_kernel": 256, "solver_kernel": 1024,
+                  "flash_kernel": 256, "flash_wgmma_kernel": 288,
+                  "ssd_chunk_state_kernel": 256, "ssd_state_pass_kernel": 256,
+                  "ssd_chunk_scan_kernel": 256}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("library,label,args", kernel_budget.MAIN_PATH_CALLS,
+                         ids=[c[1] for c in kernel_budget.MAIN_PATH_CALLS])
+def test_budget_mirror_equals_library_plan(card, library, label, args):
+    sms, optin = kernel_budget.card_limits()
+    assert kernel_budget.library_plan(library, args) == \
+        kernel_budget.mirror_plan(library, args, sms, optin)
+
+
+@pytest.mark.cuda
+def test_budget_mirror_equals_library_plan_at_chunk_states_and_ragged(card):
+    """K4 stopping after pass 1, K1 past the unrolled d, K2 at one lane and
+    at a card-filling grid, K3 at a single ragged q block."""
+    sms, optin = kernel_budget.card_limits()
+    for library, args in (
+            ("ssd", (2, 256, 8, 2, 16, 5, 64, 1)),
+            ("ssd", (1, 128, 4, 1, 64, 100, 128, 0)),
+            ("kernel_matrix", (1, 1, 1, 7, 2)),
+            ("solver", (1, 1, 1, 17, 3, 0)),
+            ("solver", (132, 3, 70, 33, 2, 2)),
+            ("flash_attention", (0, 1, 2, 1, 5, 1500, 32))):
+        assert kernel_budget.library_plan(library, args) == \
+            kernel_budget.mirror_plan(library, args, sms, optin), args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("library", kernel_budget.LIBRARIES)
+def test_budget_attributes_of_every_instance(card, library):
+    """Every template instance: its attributes read, within the card's
+    limits, and any REG-BUDGET / REG-SPILL / SMEM-BUDGET waived by the
+    port's baseline; the mirror names only instances the library has."""
+    from pathlib import Path
+
+    from repro_torch.analysis.report import load_baseline
+
+    waivers = load_baseline(str(Path(__file__).resolve().parent.parent
+                                / "analysis_baseline_torch.json"))
+    names = kernel_budget.instance_names(library)
+    for lib, _, args in kernel_budget.MAIN_PATH_CALLS:
+        if lib == library:
+            for ln in kernel_budget.mirror_plan(lib, args):
+                assert ln.kernel in names
+    for name in names:
+        threads = BUDGET_THREADS[name.split("<")[0]]
+        ln = kernel_budget.Launch(name, (1, 1, 1), (threads, 1, 1), 0)
+        att = kernel_budget.library_attributes(library, ln)
+        assert 0 < att.regs <= 255 and att.max_threads >= threads
+        assert att.ctas_per_sm >= 1 and att.regs_per_sm == 65536
+        findings = kernel_budget.check_launch(library, f"{library}[{name}]",
+                                              ln, att.smem_optin, att)
+        assert [f for f in findings
+                if not any(w.covers(f) for w in waivers)] == [], name
+
+
+@pytest.mark.cuda
+def test_budget_recording_sees_launches_and_restores(card):
+    from repro_torch.kernels import build
+
+    x = torch.rand(50, 4, device=card)
+    sv = torch.rand(3, 20, 4, device=card)
+    gamma = torch.ones(3, device=card)
+    lib = build.library("kernel_matrix")
+    before = rbf.LAUNCHES.count
+    with kernel_budget.record_launches() as seen:
+        rbf.kernel_matrix_cuda(x, sv, gamma)
+    assert seen["kernel_matrix"] == {(3, 50, 20, 4, 1)}
+    assert rbf.LAUNCHES.count == before + 1 and rbf.LAUNCHES.shapes is None
+    assert build.library("kernel_matrix") is lib
+    assert kernel_budget.library_plan("kernel_matrix", (3, 50, 20, 4, 1)) \
+        == kernel_budget.mirror_plan("kernel_matrix", (3, 50, 20, 4, 1))
+
+
+@pytest.mark.cuda
+def test_analysis_gate_on_the_card(card):
+    from pathlib import Path
+
+    from repro_torch.analysis.__main__ import main
+
+    root = Path(__file__).resolve().parent.parent
+    assert main(["--root", str(root), "--device", "cuda", "--baseline",
+                 str(root / "analysis_baseline_torch.json")]) == 0
