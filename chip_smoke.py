@@ -159,9 +159,10 @@ Phases, in order; any failure exits nonzero before the result line:
    experts cut to 8), kernels against plain versions by phase 7's rule
    (bf16 logits within ``BF16_LOGIT_ULPS``, the argmax off ties; f32
    logits and every state tensor within 1e-4).
-13. Static analysis (``repro_torch.analysis``), after phase 12, on what
+13. Static analysis (``repro_torch.analysis``), after phase 14, on what
    the earlier phases built (nothing refitted).  Budget pass: every launch
-   of the four kernels in phases 2-12 was recorded by its shapes, which
+   of the five kernel libraries in phases 2-12 and 14 was recorded by its
+   shapes, which
    each wrapper hands its launch counter (``kernel_budget.record_launches``
    turns the collecting on); for each recorded shape the Python
    mirror's launches (grid, block, dynamic shared memory) must equal the
@@ -179,6 +180,26 @@ Phases, in order; any failure exits nonzero before the result line:
    per call are printed, and every finding must be waived.  Last,
    ``python -m repro_torch.analysis --device cuda --baseline
    analysis_baseline_torch.json`` must exit 0.
+
+14. LM training (run after phase 12, inside phase 13's launch recording),
+   granite-moe-1b-a400m: (a) K3-bwd against its plain twin (f32, on the
+   same inputs) at granite-moe's training shape, hymba's SWA layer,
+   whisper's encoder and a dh-32 ``q_offset`` case, each in bf16 and f32
+   (f32 max |err| <= 1e-4 max(1, max |plain|), bf16 relative L2 <= 2^-7,
+   lse within 1e-5 of ``torch.logsumexp``), two launches bit for bit, a
+   planted fault (every q block dropping its last visible kv block)
+   caught; ms per call beside the bound (10 dh operations per live pair
+   and q head), the plain twin's and SDPA's backward, and K3's forward
+   with and without the lse store.  (b) A full-width 2-layer f32 step at
+   B = 2, S = 1100: loss and every gradient leaf through the kernels
+   against the plain versions on the card, every leaf finite and nonzero,
+   K3-bwd with dq zeroed caught, hymba raising K4's NotImplementedError.
+   (c) ``launch.train.main`` at full width, 6 steps of 4 x 4096 tokens,
+   grad_accum 2: exactly 96 K3 forward (tensor-core), 48 K3-bwd and 0 K4
+   launches in step 2, finite losses and grad norms, s/step, tokens/s,
+   peak memory and one traced step; then the 2-layer resume check (4
+   steps against 2 + checkpoint + restore + 2, the last two losses within
+   1e-3 relative) with the save's and restore's seconds and bytes.
 
 Each phase prints its wall time.  Then it prints the ``kernels`` JSON
 line, the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
@@ -1799,10 +1820,12 @@ def check_small_input(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def attn_live_pairs(sq: int, skv: int, causal: bool, window) -> int:
-    """(query, key) pairs a causal / windowed mask leaves visible."""
+def attn_live_pairs(sq: int, skv: int, causal: bool, window,
+                    q_offset: int = 0) -> int:
+    """(query, key) pairs a causal / windowed mask leaves visible, query
+    rows at kv positions ``q_offset``.."""
     total = 0
-    for qpos in range(sq):
+    for qpos in range(q_offset, q_offset + sq):
         hi = min(qpos, skv - 1) if causal else skv - 1
         lo = max(0, qpos - window + 1) if window is not None else 0
         total += max(0, hi - lo + 1)
@@ -2657,6 +2680,440 @@ def check_small_family_prefill(dev, name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: LM training on the card (granite-moe-1b-a400m)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite-moe-1b-a400m"
+#: K3-bwd's shapes: (b, hq, hkv, sq, skv, dh, causal, window, q_offset).
+K3B_SHAPES = {
+    "granite-moe training": (2, 16, 8, 4096, 4096, 64, True, None, 0),
+    "hymba swa": (4, 25, 5, 2048, 2048, 64, True, 1024, 0),
+    "whisper encoder": (4, 16, 16, 1500, 1500, 64, False, None, 0),
+    "dh 32, q_offset": (2, 8, 2, 1000, 1100, 32, True, None, 100),
+}
+#: Phase 14 (b): each gradient leaf's relative L2 against the plain
+#: versions' (beside max |err| <= 1e-4 max(1, max |g|)): loose enough for a
+#: token routed to another expert by a last-bit difference, far below the
+#: 1.0 of a leaf whose gradient was dropped.
+GRAD_REL_L2 = 1e-2
+#: Phase 14 (c): the full-width run, and the 2-layer resume check.
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "6", "--global-batch", "4",
+              "--seq-len", "4096", "--grad-accum", "2", "--seed", "0",
+              "--log-every", "1"]
+RESUME_ARGV = ["--arch", TRAIN_ARCH, "--global-batch", "4", "--seq-len",
+               "4096", "--grad-accum", "2", "--seed", "0", "--log-every", "1",
+               "--d-model", "1024", "--d-ff", "512", "--n-layers", "2"]
+
+
+def plain_lse(q, k, causal, window, q_offset):
+    """torch.logsumexp of the masked f32 logits, one batch row at a time."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    mask = ref._attn_mask(sq, 0, skv, causal, window, q_offset, q.device)
+    out = []
+    for i in range(b):
+        qg = q[i].float().reshape(hkv, hq // hkv, sq, dh) / float(dh) ** 0.5
+        logits = torch.einsum("hgqd,hkd->hgqk", qg, k[i].float())
+        logits = logits.masked_fill(~mask, float("-inf"))
+        out.append(torch.logsumexp(logits, dim=-1).reshape(hq, sq))
+        del logits
+    return torch.stack(out)
+
+
+def sdpa_backward_ms(q, k, v, do, causal, window, q_offset) -> float:
+    """``scaled_dot_product_attention(enable_gqa=True)`` forward plus
+    backward, minus its forward, ms per call: ``is_causal`` where the
+    queries start at key 0, a boolean mask otherwise."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    sq, skv = q.shape[2], k.shape[2]
+    kw = {}
+    if causal and window is None and q_offset == 0 and sq == skv:
+        kw["is_causal"] = True
+    elif causal or window is not None:
+        kw["attn_mask"] = ref._attn_mask(sq, 0, skv, causal, window,
+                                         q_offset, q.device)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True,
+                                              **kw)
+
+    def fwd_bwd():
+        fwd().backward(do)
+
+    return cuda_ms(fwd_bwd, reps=5) - cuda_ms(fwd, reps=5)
+
+
+def check_k3_bwd(dev) -> list:
+    """Phase 14 (a): K3-bwd against its plain twin at ``K3B_SHAPES`` in
+    bf16 and f32; two launches bit for bit; the planted fault (every q
+    block dropping its last visible kv block) caught; lse against
+    ``torch.logsumexp``; times beside the bound, the plain twin's and
+    SDPA's backward; K3's forward with and without the lse store."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for name, (b, hq, hkv, sq, skv, dh, causal, window, q_offset) in \
+            K3B_SHAPES.items():
+        for dtype, peak in ((torch.bfloat16, BF16_TC_OPS_PER_S),
+                            (torch.float32, F32_OPS_PER_S)):
+            q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                           .to(dtype) for shape in (
+                               (b, hq, sq, dh), (b, hkv, skv, dh),
+                               (b, hkv, skv, dh), (b, hq, sq, dh)))
+            mask = (causal, window, q_offset)
+            o, lse = flash_attention.flash_attention_cuda(
+                q, k, v, *mask, return_lse=True)
+            lse_err = float((lse - plain_lse(q, k, *mask)).abs().max())
+            if not lse_err <= 1e-5:
+                raise AssertionError(f"K3 lse {name} {dtype}: err {lse_err}")
+
+            def run(fault=0):
+                return flash_attention_bwd.flash_attention_bwd_cuda(
+                    q, k, v, o, lse, do, *mask, fault=fault)
+
+            def plain():
+                return ref.flash_attention_bwd(
+                    q.float(), k.float(), v.float(), o.float(), lse,
+                    do.float(), *mask)
+
+            got, again, want = run(), run(), plain()
+            bad = run(flash_attention_bwd.FAULT_DROP_LAST_KV_BLOCK)
+            torch.cuda.synchronize()
+            errs, fault_caught = {}, True
+            for g_name, g, g2, w, gb in zip("qkv", got, again, want, bad):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"K3-bwd {name} {dtype}: d{g_name} "
+                                         "differs between two launches")
+                scale = max(1.0, float(w.abs().max()))
+                err = float((g.float() - w).abs().max())
+                rel = rel_l2(g, w)
+                ok = (err <= 1e-4 * scale if dtype == torch.float32
+                      else rel <= 2 ** -7)
+                bad_ok = (float((gb.float() - w).abs().max()) <= 1e-4 * scale
+                          if dtype == torch.float32
+                          else rel_l2(gb, w) <= 2 ** -7)
+                fault_caught &= not bad_ok
+                if not ok:
+                    raise AssertionError(f"K3-bwd {name} {dtype}: d{g_name} "
+                                         f"max err {err}, rel L2 {rel}")
+                errs[f"d{g_name}"] = dict(max_abs_err=err, rel_l2=rel)
+            if not fault_caught:
+                raise AssertionError(f"K3-bwd {name} {dtype}: the check "
+                                     "passed the planted fault")
+            pairs = attn_live_pairs(sq, skv, causal, window, q_offset)
+            n_ops = 10 * dh * pairs * b * hq
+            n_bytes = q.element_size() * 2 * (3 * q.numel() + 2 * k.numel()) \
+                + 4 * lse.numel()
+            bnd, by = bound_ms(n_bytes, n_ops, peak)
+            row = dict(shape=name, dtype=str(dtype).split(".")[-1],
+                       dims=[b, hq, hkv, sq, skv, dh], causal=causal,
+                       window=window, q_offset=q_offset,
+                       live_pairs_per_head=pairs, errors=errs,
+                       max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                       lse_max_abs_err=lse_err, planted_fault_caught=True,
+                       deterministic=True, ms=cuda_ms(run, reps=5),
+                       plain_ms=cuda_ms(plain, reps=1, warmup=1),
+                       library_ms=sdpa_backward_ms(q, k, v, do, *mask),
+                       bound_ms=bnd, bound_by=by)
+            if name == "granite-moe training":
+                # K3's forward at the training shape: the serving instance,
+                # the lse-storing one, its plain version and SDPA.
+                import torch.nn.functional as F
+
+                row["k3_forward_ms"] = cuda_ms(
+                    lambda: flash_attention.flash_attention_cuda(q, k, v,
+                                                                 *mask),
+                    reps=10)
+                row["k3_forward_with_lse_ms"] = cuda_ms(
+                    lambda: flash_attention.flash_attention_cuda(
+                        q, k, v, *mask, return_lse=True), reps=10)
+                row["k3_forward_plain_ms"] = cuda_ms(
+                    lambda: ref.flash_attention(q, k, v, *mask, True),
+                    reps=1, warmup=1)
+                row["k3_forward_library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True), reps=10)
+                row["k3_forward_bound_ms"] = bound_ms(
+                    q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                    4 * dh * pairs * b * hq, peak)[0]
+            rows.append(row)
+            log("K3-BWD", json.dumps(row))
+            del q, k, v, do, o, lse, got, again, want, bad
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _grads(cfg, model, batch) -> tuple:
+    from repro_torch.models import transformer as tfm
+
+    for t in model.parameters():
+        t.grad = None
+    loss, _ = tfm.forward_train(cfg, model, batch)
+    loss.backward()
+    return float(loss), [t.grad.clone() for t in model.parameters()]
+
+
+def small_train_step(dev) -> dict:
+    """Phase 14 (b): granite-moe at full width, 2 layers, f32, B = 2, S =
+    1100: loss and every gradient leaf through K3 / K3-bwd against the
+    same model with the plain versions on the card; every leaf's gradient
+    finite and nonzero; K3-bwd with dq zeroed fails the check; hymba's
+    reduced config raises K4's NotImplementedError on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ops
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import step as step_mod
+
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH).make_config(),
+                              n_layers=2, dtype="float32", remat="full")
+    model = step_mod.init_train_state(cfg, opt_mod.AdamWConfig(), 0,
+                                      dev)["params"]
+    rng = np.random.RandomState(14)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 1101)),
+                           device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ops.reset_launches()
+    loss, grads = _grads(cfg, model, batch)
+    counts = ops.launch_counts()
+    names = [n for n, _ in model.named_parameters()]
+    dead = [n for n, g in zip(names, grads)
+            if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    if dead:
+        raise AssertionError(f"no finite nonzero gradient on the card: {dead}")
+    real_fwd = flash_attention.flash_attention_cuda
+    real_bwd = flash_attention_bwd.flash_attention_bwd_cuda
+    try:
+        flash_attention.flash_attention_cuda = ref.flash_attention
+        flash_attention_bwd.flash_attention_bwd_cuda = ref.flash_attention_bwd
+        loss_p, grads_p = _grads(cfg, model, batch)
+        flash_attention.flash_attention_cuda = real_fwd
+
+        def dq_zeroed(*args, **kw):
+            dq, dk, dv = real_bwd(*args, **kw)
+            return torch.zeros_like(dq), dk, dv
+
+        flash_attention_bwd.flash_attention_bwd_cuda = dq_zeroed
+        _, grads_bad = _grads(cfg, model, batch)
+    finally:
+        flash_attention.flash_attention_cuda = real_fwd
+        flash_attention_bwd.flash_attention_bwd_cuda = real_bwd
+
+    def worst(gs):
+        """The worst leaf by the stated tolerance (max |err| over max(1,
+        max |g|)), and by relative L2: most leaves' gradients are far
+        below 1, where the first alone would pass a dropped gradient."""
+        return (max(float((g - w).abs().max()) / max(1.0, float(
+                    w.abs().max())) for g, w in zip(gs, grads_p)),
+                max(rel_l2(g, w) for g, w in zip(gs, grads_p)))
+
+    loss_rel = abs(loss - loss_p) / abs(loss_p)
+    (grad_err, grad_rel), (bad_err, bad_rel) = worst(grads), worst(grads_bad)
+    if loss_rel > 1e-5 or grad_err > 1e-4 or grad_rel > GRAD_REL_L2:
+        raise AssertionError(f"train step kernels vs plain: loss rel "
+                             f"{loss_rel}, worst gradient {grad_err}, worst "
+                             f"relative L2 {grad_rel}")
+    if bad_err <= 1e-4 and bad_rel <= GRAD_REL_L2:
+        raise AssertionError("the gradient check passed K3-bwd with dq "
+                             "zeroed")
+    if counts["flash_attention"] != 4 or counts["flash_attention_bwd"] != 2:
+        raise AssertionError(f"small step launches {counts}")
+    hymba = configs.get("hymba-1.5b").reduced()
+    hmodel = step_mod.init_train_state(hymba, opt_mod.AdamWConfig(), 0,
+                                       dev)["params"]
+    htoks = toks[:, :41] % hymba.vocab_size
+    try:
+        tfm.forward_train(hymba, hmodel, {"tokens": htoks[:, :-1],
+                                          "labels": htoks[:, 1:]})
+    except NotImplementedError as e:
+        k4_raises = str(e)
+    else:
+        raise AssertionError("hymba trained on the card without K4's "
+                             "backward")
+    del model, grads, grads_p, grads_bad, hmodel
+    torch.cuda.empty_cache()
+    row = dict(config=f"{TRAIN_ARCH} full width, 2 layers, f32, B 2, S 1100",
+               loss=loss, loss_rel_err=loss_rel,
+               worst_grad_err_over_max=grad_err,
+               worst_grad_rel_l2=grad_rel, leaves=len(names),
+               dq_zeroed_err_over_max=bad_err, dq_zeroed_rel_l2=bad_rel,
+               launches=counts,
+               k4_raises=k4_raises)
+    log("TRAIN-SMALL", json.dumps(row))
+    return row
+
+
+def _step_groups(prof) -> tuple[dict, list]:
+    """Device ms by kernel group of one traced training step, and the ten
+    kernels that took the most."""
+    from torch.autograd import DeviceType
+
+    groups = {"K3 forward": 0.0, "K3-bwd": 0.0, "cuBLAS GEMM": 0.0,
+              "other": 0.0}
+    by_name: dict[str, list] = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        ms = (evt.time_range.end - evt.time_range.start) / 1e3
+        name = evt.name
+        tot = by_name.setdefault(name, [0.0, 0])
+        tot[0] += ms
+        tot[1] += 1
+        if "flash_kernel" in name or "flash_wgmma_kernel" in name:
+            groups["K3 forward"] += ms
+        elif any(k in name for k in ("bwd_dot_kernel", "bwd_dkv_kernel",
+                                     "bwd_dq_kernel")):
+            groups["K3-bwd"] += ms
+        elif any(t in name.lower() for t in ("gemm", "nvjet", "xmma",
+                                                "cutlass")):
+            groups["cuBLAS GEMM"] += ms
+        else:
+            groups["other"] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return groups, [[n[:90], t, c] for n, (t, c) in top]
+
+
+def full_width_training(dev) -> dict:
+    """Phase 14 (c): ``launch.train.main`` on granite-moe-1b-a400m at full
+    width (6 steps of 4 x 4096 tokens, grad_accum 2, bf16 compute over f32
+    masters, remat "full"): the launches of step 2 (counters zeroed after
+    step 1), s/step (median of steps 2-6), tokens/s, peak memory, one
+    traced step (step 6); then the resume check at 2 layers."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    seen: dict = {"s": [], "gnorm": []}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_step(step, state, m, seconds):
+        seen["s"].append(seconds)
+        seen["gnorm"].append(float(m["grad_norm"]))
+        if step == 0:
+            ops.reset_launches()
+        elif step == 1:
+            seen["launches"] = ops.launch_counts()
+        elif step == 4:
+            torch.cuda.synchronize()
+            prof.start()
+            seen["t_traced"] = time.perf_counter()
+        elif step == 5:
+            torch.cuda.synchronize()
+            seen["traced_wall_ms"] = (time.perf_counter()
+                                      - seen["t_traced"]) * 1e3
+            prof.stop()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = train.main(TRAIN_ARGV, on_step=on_step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = seen["launches"]
+    want = {"flash_attention": 96, "flash_attention_bf16_wgmma": 96,
+            "flash_attention_f32_cuda_cores": 0, "flash_attention_bwd": 48,
+            "ssd": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"full-width step launches {got}, want {want}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(seen["gnorm"])):
+        raise AssertionError(f"non-finite loss / grad norm: {losses} "
+                             f"{seen['gnorm']}")
+    groups, top = _step_groups(prof)
+    busy = sum(groups.values())
+    s_step = statistics.median(seen["s"][1:])
+    tokens = 4 * 4096
+    traced = dict(wall_ms=seen["traced_wall_ms"], device_ms=groups,
+                  device_busy_ms=busy,
+                  device_idle_share=1.0 - busy / seen["traced_wall_ms"],
+                  top_kernels_ms_launches=top)
+    if busy == 0:
+        traced = dict(wall_ms=seen["traced_wall_ms"], device="not measured")
+    del prof
+    torch.cuda.empty_cache()
+
+    # The resume check at 2 layers: 4 steps, against 2 + save + restore +
+    # 2, in one process (the restore builds a fresh train state).
+    io = {"save_s": [], "save_bytes": [], "restore_s": [],
+          "restore_bytes": []}
+    real_save, real_restore = ckpt.save, ckpt.restore
+
+    def timed_save(d, step, tree):
+        t0 = time.perf_counter()
+        path = real_save(d, step, tree)
+        io["save_s"].append(time.perf_counter() - t0)
+        io["save_bytes"].append(sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)))
+        return path
+
+    def timed_restore(d, tree_like):
+        t0 = time.perf_counter()
+        out = real_restore(d, tree_like)
+        io["restore_s"].append(time.perf_counter() - t0)
+        path = os.path.join(d, f"step_{out[0]:08d}")
+        io["restore_bytes"].append(sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+            if f.endswith(".npy")))
+        return out
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    cont = train.main(RESUME_ARGV + ["--steps", "4"])
+    try:
+        ckpt.save, ckpt.restore = timed_save, timed_restore
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            first = train.main(RESUME_ARGV + ["--steps", "2", "--ckpt-dir", d])
+            rest = train.main(RESUME_ARGV + ["--steps", "4", "--ckpt-dir", d])
+    finally:
+        ckpt.save, ckpt.restore = real_save, real_restore
+    resumed = first + rest
+    diff = max(abs(a - b) / abs(b) for a, b in zip(resumed[2:], cont[2:]))
+    if len(resumed) != 4 or diff > 1e-3:
+        raise AssertionError(f"resume: {resumed} vs continuous {cont}")
+    torch.cuda.empty_cache()
+    row = dict(argv=" ".join(TRAIN_ARGV), losses=losses,
+               grad_norms=seen["gnorm"], step_s=seen["s"],
+               s_per_step_median_2_6=s_step, tokens_per_s=tokens / s_step,
+               peak_memory_gb=peak_gb, launches_step_2=got,
+               traced_step_6=traced,
+               resume=dict(argv=" ".join(RESUME_ARGV), continuous=cont,
+                           resumed=resumed, last_two_max_rel_diff=diff,
+                           bit_for_bit=resumed == cont,
+                           deterministic_algorithms=False, **io))
+    log("TRAIN", json.dumps(row))
+    return row
+
+
+def training_phase(dev) -> dict:
+    """Phase 14: (a) K3-bwd, (b) a small step kernels vs plain, (c) the
+    full-width run and the resume check."""
+    return dict(k3_bwd=check_k3_bwd(dev), small=small_train_step(dev),
+                full=full_width_training(dev))
+
+
+# ---------------------------------------------------------------------------
 # Phase 13: static analysis on the card
 # ---------------------------------------------------------------------------
 
@@ -2675,7 +3132,7 @@ def budget_pass(recorded: dict) -> tuple[dict, list]:
     findings."""
     from repro_torch.analysis import kernel_budget
 
-    calls = [(lib, "phases 2-12", args)
+    calls = [(lib, "phases 2-12, 14", args)
              for lib, seen in recorded.items() for args in sorted(seen)]
     if {lib for lib, _, _ in calls} != set(kernel_budget.LIBRARIES):
         raise AssertionError(f"a kernel was not recorded: "
@@ -2850,7 +3307,8 @@ def main() -> int:
     for name, text in build.BUILD_LOG.items():
         for kernel, report in ptxas_report(text):
             log(f"ptxas[{name}] {kernel}: {report}")
-    # Phase 13 reads the shapes of every kernel launch of phases 2-12.
+    # Phase 13 reads the shapes of every kernel launch of phases 2-12 and
+    # 14.
     recording = contextlib.ExitStack()
     recorded = recording.enter_context(kernel_budget.record_launches())
 
@@ -2929,6 +3387,10 @@ def main() -> int:
     for name in SMALL_PREFILLS:
         check_small_family_prefill(dev, name)
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    training = training_phase(dev)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
     recording.close()
 
     t0 = time.perf_counter()
@@ -2936,12 +3398,18 @@ def main() -> int:
                                      serving["fleet"])
     del har12
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    full = training["full"]
     k3_paths = {"hymba-1.5b": serve_counts["flash_attention"],
-                **{r["arch"]: r["k3_launches"] for r in family_rows.values()}}
+                **{r["arch"]: r["k3_launches"] for r in family_rows.values()},
+                f"{TRAIN_ARCH} train step":
+                    full["launches_step_2"]["flash_attention"]}
     k4_paths = {"hymba-1.5b": serve_counts["ssd"],
                 **{r["arch"]: r["k4_launches"] for r in family_rows.values()}}
     k3_tc = serve_counts["flash_attention_bf16_wgmma"] + sum(
-        r["k3_tensor_core"] for r in family_rows.values())
+        r["k3_tensor_core"] for r in family_rows.values()) + \
+        full["launches_step_2"]["flash_attention_bf16_wgmma"]
+    k3b = next(r for r in training["k3_bwd"] if r["dtype"] == "bfloat16"
+               and r["shape"] == "granite-moe training")
 
     # K3's entry is the SWA layer in bf16 (29 of the 32 launches); the
     # global layer's row rides along.
@@ -3012,7 +3480,11 @@ def main() -> int:
              families={f"{r['case']}/{r['dtype']}": {key: r[key] for key in (
                  "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "max_abs_err", "rel_l2")}
-                 for r in k3_family_rows}),
+                 for r in k3_family_rows},
+             training_shape={key: k3b[key] for key in (
+                 "dims", "k3_forward_ms", "k3_forward_with_lse_ms",
+                 "k3_forward_plain_ms", "k3_forward_library_ms",
+                 "k3_forward_bound_ms")}),
         dict(name="ssd", route="cuda",
              budget=analysis["budgets"]["ssd"],
              source="src/repro_torch/kernels/csrc/ssd.cu",
@@ -3030,6 +3502,27 @@ def main() -> int:
              mamba2={key: k4_mamba2[key] for key in (
                  "shape", "ms", "pass1_ms", "device_ms", "device_ms_by_pass",
                  "plain_ms", "bound_ms", "bound_by", "max_abs_err")}),
+        dict(name="flash_attention_bwd", route="cuda",
+             budget=analysis["budgets"]["flash_attention_bwd"],
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="none: K3's gradient; the reference differentiates its "
+                      "jnp attention (src/repro/models/attention.py:122)",
+             design="CUDA cores, f32: D = rowsum(dO O), then dK / dV per kv "
+                    "block over the group's q heads, then dQ per q block; "
+                    "no atomics; 3 device launches per call",
+             launches=full["launches_step_2"]["flash_attention_bwd"],
+             launches_by_path={f"{TRAIN_ARCH} train step": full[
+                 "launches_step_2"]["flash_attention_bwd"]},
+             max_abs_err=k3b["max_abs_err"], rel_l2={
+                 g: e["rel_l2"] for g, e in k3b["errors"].items()},
+             ms=k3b["ms"], plain_ms=k3b["plain_ms"], bound_ms=k3b["bound_ms"],
+             bound_by=k3b["bound_by"], library_ms=k3b["library_ms"],
+             library_note="SDPA (enable_gqa) forward + backward minus its "
+                          "forward",
+             shape=k3b["dims"],
+             shapes={f"{r['shape']}/{r['dtype']}": {key: r[key] for key in (
+                 "dims", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "max_abs_err")} for r in training["k3_bwd"]}),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -10,7 +10,10 @@ paper's Algorithm 1 end to end: ``data.datasets.load`` ->
   repro_torch.api      MixedKernelSVM, CompiledMachine, compile_machine
   repro_torch.core     SVM solver, analog model, OvO, trainer, cost model
   repro_torch.data     the paper's datasets (byte-identical copies)
-  repro_torch.kernels  hand-written CUDA kernels K1/K2 + plain versions
+  repro_torch.kernels  hand-written CUDA kernels K1-K4, K3-bwd + plain versions
+  repro_torch.models   the LM families (serving and training forward)
+  repro_torch.training AdamW (8-bit moments) and the train step
+  repro_torch.checkpoint  atomic checkpoints in the reference's layout
 
 Entry points take ``device=None``, meaning the card; pass ``device="cpu"``
 to run the plain PyTorch versions.

@@ -15,7 +15,9 @@ of every kernel instance at every shape, with no card and no ``nvcc``:
   opt-in shared memory (arguments here, the H100's by default);
 * K3 ``flash_attention.cu``: f32 ``smem_floats<DH>()``, bf16
   ``TcLayout<DH>::kSmem``;
-* K4 ``ssd.cu``: ``state_smem`` / ``scan_smem`` and the state pass.
+* K4 ``ssd.cu``: ``state_smem`` / ``scan_smem`` and the state pass;
+* K3-bwd ``flash_attention_bwd.cu``: the D pass, then ``dkv_smem_floats`` /
+  ``dq_smem_floats``.
 
 Each library also exports a plan query that returns the launches its own
 host code would make (``csrc/budget.cuh``).  On a card the pass holds the
@@ -63,7 +65,8 @@ WARP = 32
 GRID_LIMITS = (2**31 - 1, 65535, 65535)
 
 CSRC = "src/repro_torch/kernels/csrc"
-LIBRARIES = ("kernel_matrix", "solver", "flash_attention", "ssd")
+LIBRARIES = ("kernel_matrix", "solver", "flash_attention", "ssd",
+             "flash_attention_bwd")
 SOURCE = {lib: f"{CSRC}/{lib}.cu" for lib in LIBRARIES}
 #: Ints per launch in a plan query's output, launches per call at most.
 PLAN_INTS = 8
@@ -182,7 +185,10 @@ def k2_plan(n_pairs: int, n_gamma: int, n_lanes: int, n: int, d: int,
 K3_BLOCK_Q, K3_BLOCK_K, K3_THREADS = 64, 64, 256
 K3_TC_BLOCK_Q, K3_TC_THREADS, K3_STAGES = 128, 288, 2
 K3_HEAD_DIMS = (32, 64, 96, 112, 128)
-K3_DTYPES = {0: "flash_kernel", 1: "flash_wgmma_kernel"}
+#: The plan query's first argument: 0 = f32, 1 = bf16, 2 = bf16 storing
+#: the row lse (the training forward's instance).
+K3_DTYPES = {0: "flash_kernel", 1: "flash_wgmma_kernel",
+             2: "flash_wgmma_kernel"}
 
 
 def k3_smem(dtype: int, dh: int) -> int:
@@ -198,14 +204,14 @@ def k3_smem(dtype: int, dh: int) -> int:
 def k3_plan(dtype: int, b: int, hq: int, hkv: int, sq: int, skv: int,
             dh: int) -> list[Launch]:
     """K3's launches for q (b, hq, sq, dh) against k, v (b, hkv, skv, dh);
-    ``dtype`` 0 = f32, 1 = bf16."""
+    ``dtype`` 0 = f32, 1 = bf16, 2 = bf16 storing lse."""
     if b <= 0 or hq <= 0 or sq <= 0:
         return []
     if hkv <= 0 or hq % hkv or skv <= 0 or b * hq > 65535 \
             or dtype not in K3_DTYPES or dh not in K3_HEAD_DIMS:
         raise ValueError(f"K3 takes no dtype {dtype}, heads {hq} / {hkv}, "
                          f"dh {dh}")
-    name = f"{K3_DTYPES[dtype]}<{dh}>"
+    name = f"{K3_DTYPES[dtype]}<{dh}{', lse' if dtype == 2 else ''}>"
     if dtype == 0:
         return [Launch(name, (_cdiv(sq, K3_BLOCK_Q), b * hq, 1),
                        (K3_THREADS, 1, 1), k3_smem(0, dh))]
@@ -266,6 +272,45 @@ def k4_plan(b: int, s: int, nh: int, g: int, dh: int, ds: int, chunk: int,
                k4_scan_smem(dh, w, chunk))]
 
 
+# ---------------------------------------------------------------------------
+# K3-bwd: flash_attention_bwd.cu plan<DH>()
+# ---------------------------------------------------------------------------
+
+K3B_BLOCK_Q, K3B_BLOCK_K, K3B_THREADS = 64, 64, 256
+K3B_HEAD_DIMS = (32, 64)
+K3B_TYPES = {0: "float", 1: "__nv_bfloat16"}
+
+
+def k3b_smem(dh: int) -> tuple[int, int]:
+    """Dynamic shared memory of the dK / dV and the dQ launch at head dim
+    ``dh`` (``dkv_smem_floats`` / ``dq_smem_floats``)."""
+    tiles = 4 * K3B_BLOCK_Q * (dh + 1) + 2 * K3B_BLOCK_Q
+    ld_p = K3B_BLOCK_K + 1
+    return 4 * (tiles + 2 * K3B_BLOCK_K * ld_p), 4 * (tiles + K3B_BLOCK_Q * ld_p)
+
+
+def k3b_plan(dtype: int, b: int, hq: int, hkv: int, sq: int, skv: int,
+             dh: int) -> list[Launch]:
+    """K3-bwd's launches for q (b, hq, sq, dh) against k, v (b, hkv, skv,
+    dh): D, dK / dV, dQ; ``dtype`` 0 = f32, 1 = bf16."""
+    if b <= 0 or hq <= 0 or sq <= 0:
+        return []
+    if hkv <= 0 or hq % hkv or skv <= 0 or b * hq > 65535 \
+            or dtype not in K3B_TYPES or dh not in K3B_HEAD_DIMS:
+        raise ValueError(f"K3-bwd takes no dtype {dtype}, heads {hq} / "
+                         f"{hkv}, dh {dh}")
+    t = K3B_TYPES[dtype]
+    blk = (K3B_THREADS, 1, 1)
+    dkv, dq = k3b_smem(dh)
+    return [
+        Launch(f"bwd_dot_kernel<{t}>",
+               (_cdiv(b * hq * sq, K3B_THREADS // WARP), 1, 1), blk, 0),
+        Launch(f"bwd_dkv_kernel<{t}, {dh}>",
+               (_cdiv(skv, K3B_BLOCK_K), b * hkv, 1), blk, dkv),
+        Launch(f"bwd_dq_kernel<{t}, {dh}>",
+               (_cdiv(sq, K3B_BLOCK_Q), b * hq, 1), blk, dq)]
+
+
 def mirror_plan(library: str, args: tuple, sm_count: int = H100_SMS,
                 smem_optin: int = H100_SMEM_OPTIN) -> list[Launch]:
     """The Python mirror of ``library``'s plan for the plan query's
@@ -278,6 +323,8 @@ def mirror_plan(library: str, args: tuple, sm_count: int = H100_SMS,
         return k3_plan(*args)
     if library == "ssd":
         return k4_plan(*args)
+    if library == "flash_attention_bwd":
+        return k3b_plan(*args)
     raise ValueError(f"no kernel library {library!r}")
 
 
@@ -374,10 +421,12 @@ def record_launches():
 
 
 def _counters() -> dict:
-    from repro_torch.kernels import flash_attention, rbf, solver, ssd
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                     rbf, solver, ssd)
 
     return {"kernel_matrix": rbf.LAUNCHES, "solver": solver.LAUNCHES,
-            "flash_attention": flash_attention.LAUNCHES, "ssd": ssd.LAUNCHES}
+            "flash_attention": flash_attention.LAUNCHES, "ssd": ssd.LAUNCHES,
+            "flash_attention_bwd": flash_attention_bwd.LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -427,6 +476,17 @@ def grid_covers(library: str, args: tuple, launches: list[Launch]
             else (ln.grid[1] * K3_TC_BLOCK_Q, ln.grid[0])
         if rows < sq or heads != b * hq:
             bad.append(f"grid {ln.grid} does not cover {b * hq} heads x "
+                       f"{sq} query rows")
+    elif library == "flash_attention_bwd":
+        _, b, hq, hkv, sq, skv, _ = args
+        dot, dkv, dq = launches
+        if dot.grid[0] * (K3B_THREADS // WARP) < b * hq * sq:
+            bad.append(f"D grid {dot.grid} does not cover {b * hq * sq} rows")
+        if dkv.grid[0] * K3B_BLOCK_K < skv or dkv.grid[1] != b * hkv:
+            bad.append(f"dK / dV grid {dkv.grid} does not cover {b * hkv} "
+                       f"kv heads x {skv} keys")
+        if dq.grid[0] * K3B_BLOCK_Q < sq or dq.grid[1] != b * hq:
+            bad.append(f"dQ grid {dq.grid} does not cover {b * hq} heads x "
                        f"{sq} query rows")
     elif library == "ssd":
         b, s, nh, _, dh, ds, chunk, _ = args
@@ -568,7 +628,8 @@ def fused_vs_oracle(cfg: dict, oracle_bytes: Optional[int] = None,
 #: The kernel calls the main paths make, at their shapes (the plan query's
 #: arguments): the deployed banks and the padded training set (K1), the
 #: Table II and har12 CV lanes in every mode (K2), each served prefill's
-#: attention in both dtypes (K3), hymba's and mamba2's scans (K4).
+#: attention in both dtypes (K3), hymba's and mamba2's scans (K4), and
+#: granite-moe's training attention forward and backward (K3, K3-bwd).
 MAIN_PATH_CALLS = (
     ("kernel_matrix", "balance rbf bank", (3, 188, 71, 4, 1)),
     ("kernel_matrix", "har12 rbf bank", (66, 1875, 675, 5, 1)),
@@ -591,6 +652,14 @@ MAIN_PATH_CALLS = (
     ("flash_attention", "whisper cross bf16", (1, 4, 16, 16, 64, 1500, 64)),
     ("ssd", "hymba", (4, 2048, 50, 1, 64, 16, 128, 0)),
     ("ssd", "mamba2", (4, 2048, 80, 1, 64, 128, 128, 0)),
+    ("flash_attention", "granite-moe training bf16 (lse)",
+     (2, 2, 16, 8, 4096, 4096, 64)),
+    ("flash_attention_bwd", "granite-moe training bf16",
+     (1, 2, 16, 8, 4096, 4096, 64)),
+    ("flash_attention_bwd", "granite-moe training f32",
+     (0, 2, 16, 8, 4096, 4096, 64)),
+    ("flash_attention_bwd", "whisper encoder bf16",
+     (1, 2, 16, 16, 1500, 1500, 64)),
 )
 
 

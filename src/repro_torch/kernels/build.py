@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 
 #: kernel library name -> its translation unit (headers are shared).
 SOURCES = {"kernel_matrix": "kernel_matrix.cu", "solver": "solver.cu",
-           "flash_attention": "flash_attention.cu", "ssd": "ssd.cu"}
+           "flash_attention": "flash_attention.cu", "ssd": "ssd.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 HEADERS = ("tiles.cuh", "budget.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -135,11 +136,13 @@ _SIGNATURES = {
                [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                 _F, _F, _F, _P], 6),
     "flash_attention": ("k3", "k3_flash_attention",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _P], 7),
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _P], 7),
     "ssd": ("k4", "k4_ssd_scan",
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
              _P], 8),
+    "flash_attention_bwd": ("k3b", "k3b_flash_attention_bwd",
+                            [_P] * 10 + [_I] * 11 + [_P], 7),
 }
 
 
@@ -160,7 +163,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def c_prefix(name: str) -> str:
-    """The C prefix of library ``name`` (``k1`` .. ``k4``)."""
+    """The C prefix of library ``name`` (``k1`` .. ``k4``, ``k3b``)."""
     return _SIGNATURES[name][0]
 
 

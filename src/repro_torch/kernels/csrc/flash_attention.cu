@@ -11,6 +11,17 @@
 //   p = exp(logits - m_new) * mask; l = l * corr + sum(p);
 //   acc = acc * corr + p v; out = acc / max(l, 1e-30) in q's dtype.
 //
+// For training, the caller may pass an lse pointer (b, hq, sq) f32: both
+// kernels then also store each row's log-sum-exp of the scaled logits,
+// m + log(l) (-inf for a row that sees no key), which the backward
+// (flash_attention_bwd.cu) reads.  Serving passes null and stores nothing
+// more.  The bf16 kernel's l sums p after its rounding to bf16 (the
+// output's denominator); its lse sums the unrounded exp2 values beside it,
+// so that the backward's P = exp(s - lse) is the softmax of the logits.
+// Those sums cost the bf16 kernel registers (+30 at dh 96-128), so it
+// keeps them in a second instance (kLse): the serving instance is the
+// kernel as it was.  The f32 kernel stores lse under a runtime test.
+//
 // The kv head of q head h is h / group (the Pallas index maps), with any
 // group, power of two or not.  Kv blocks that no query row of the q block
 // can see (the Pallas `live` predicate: padding, causal, window) are never
@@ -86,8 +97,9 @@ constexpr size_t smem_floats() {
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int group, int sq,
-             int skv, int causal, int window, int q_offset, float scale) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int group, int sq, int skv, int causal,
+             int window, int q_offset, float scale) {
   constexpr int kLd = DH + 1;
   constexpr int kDims = DH / 16;
   extern __shared__ float smem[];
@@ -219,6 +231,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kDims; ++c)
       op[static_cast<size_t>(row) * DH + tx + 16 * c] =
           acc[r][c] / den;
+    // Every lane of the half-warp holds the row's m and l.
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<size_t>(bh) * sq + row] = m[r] + logf(l[r]);
   }
 }
 
@@ -525,13 +540,14 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
 // and column 8 (i / 4) + 2 (t % 4) + i % 2.
 // Two CTAs per SM up to dh 64; from dh 96 one (the DH / 2 f32 output
 // registers of a thread would be capped at 113 registers by two).
-template <int DH>
+template <int DH, bool kLse>
 __global__ void __launch_bounds__(kTcThreads, DH <= 64 ? 2 : 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
-                   __nv_bfloat16* __restrict__ o, int group, int sq, int skv,
-                   int causal, int window, int q_offset, float scale_log2) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int group, int sq, int skv, int causal, int window,
+                   int q_offset, float scale_log2) {
   using L = TcLayout<DH>;
   extern __shared__ uint8_t smem_raw[];
   // TMA swizzle atoms must start at 1024 B (128 B swizzle) boundaries.
@@ -606,6 +622,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const bool wg_empty = q0 + wg * 64 >= sq;
 
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+  // Unrounded sums beside l, for the lse store (the training instance).
+  float le_a = 0.f, le_b = 0.f;
   float acc[DH / 2];
 #pragma unroll
   for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
@@ -674,23 +692,29 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       // p rounded to bf16, packed in the A layout of m64nNk16: k-step kk
       // takes accumulator registers 8 kk .. 8 kk + 7.
       uint32_t pa[4][4];
-      float sum_a = 0.f, sum_b = 0.f;
+      float sum_a = 0.f, sum_b = 0.f, se_a = 0.f, se_b = 0.f;
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
         const bool row_b = (i / 2) % 2;
         const float mrow = row_b ? mx_b : mx_a;
-        const __nv_bfloat162 p2 = __floats2bfloat162_rn(
-            exp2f(sc[i] - mrow), exp2f(sc[i + 1] - mrow));
+        const float e0 = exp2f(sc[i] - mrow), e1 = exp2f(sc[i + 1] - mrow);
+        const __nv_bfloat162 p2 = __floats2bfloat162_rn(e0, e1);
         const float2 pr = __bfloat1622float2(p2);
         if (row_b) {
           sum_b += pr.x + pr.y;
+          if constexpr (kLse) se_b += e0 + e1;
         } else {
           sum_a += pr.x + pr.y;
+          if constexpr (kLse) se_a += e0 + e1;
         }
         pa[i / 8][(i % 8) / 2] = *reinterpret_cast<const uint32_t*>(&p2);
       }
       l_a = l_a * corr_a + sum_a;   // per-thread partial sums; reduced at
       l_b = l_b * corr_b + sum_b;   // the end over the 4 threads of a row
+      if constexpr (kLse) {
+        le_a = le_a * corr_a + se_a;
+        le_b = le_b * corr_b + se_b;
+      }
 #pragma unroll
       for (int i = 0; i < DH / 2; ++i) acc[i] *= ((i / 2) % 2) ? corr_b : corr_a;
 
@@ -721,6 +745,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  if constexpr (kLse) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      le_a += __shfl_xor_sync(0xffffffffu, le_a, off);
+      le_b += __shfl_xor_sync(0xffffffffu, le_b, off);
+    }
+    // m is in log2 units (the scale carries log2(e)): lse = ln 2 (m + log2 l).
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lp = lse + static_cast<size_t>(bh) * sq;
+    if (t % 4 == 0 && row_a < sq) lp[row_a] = kLn2 * (m_a + log2f(le_a));
+    if (t % 4 == 0 && row_a + 8 < sq)
+      lp[row_a + 8] = kLn2 * (m_b + log2f(le_b));
+  }
   __nv_bfloat16* op = o + static_cast<size_t>(bh) * sq * DH;
 #pragma unroll
   for (int i = 0; i < DH / 2; i += 2) {
@@ -744,16 +781,23 @@ constexpr int dh_index() {
 
 #define K3_INSTANCE(KERNEL, DH)                                           \
   {reinterpret_cast<const void*>(KERNEL<DH>), #KERNEL "<" #DH ">"}
-// f32 (flash_kernel) then bf16 (flash_wgmma_kernel), each at dh 32, 64,
-// 96, 112, 128.
+#define K3_TC_INSTANCE(DH, LSE, SUFFIX)                                   \
+  {reinterpret_cast<const void*>(flash_wgmma_kernel<DH, LSE>),            \
+   "flash_wgmma_kernel<" #DH SUFFIX ">"}
+// f32 (flash_kernel), bf16 (flash_wgmma_kernel), then bf16 storing lse,
+// each at dh 32, 64, 96, 112, 128.
 const KernelInstance kK3Instances[] = {
-    K3_INSTANCE(flash_kernel, 32),        K3_INSTANCE(flash_kernel, 64),
-    K3_INSTANCE(flash_kernel, 96),        K3_INSTANCE(flash_kernel, 112),
-    K3_INSTANCE(flash_kernel, 128),       K3_INSTANCE(flash_wgmma_kernel, 32),
-    K3_INSTANCE(flash_wgmma_kernel, 64),  K3_INSTANCE(flash_wgmma_kernel, 96),
-    K3_INSTANCE(flash_wgmma_kernel, 112), K3_INSTANCE(flash_wgmma_kernel, 128),
+    K3_INSTANCE(flash_kernel, 32),     K3_INSTANCE(flash_kernel, 64),
+    K3_INSTANCE(flash_kernel, 96),     K3_INSTANCE(flash_kernel, 112),
+    K3_INSTANCE(flash_kernel, 128),    K3_TC_INSTANCE(32, false, ""),
+    K3_TC_INSTANCE(64, false, ""),     K3_TC_INSTANCE(96, false, ""),
+    K3_TC_INSTANCE(112, false, ""),    K3_TC_INSTANCE(128, false, ""),
+    K3_TC_INSTANCE(32, true, ", lse"), K3_TC_INSTANCE(64, true, ", lse"),
+    K3_TC_INSTANCE(96, true, ", lse"), K3_TC_INSTANCE(112, true, ", lse"),
+    K3_TC_INSTANCE(128, true, ", lse"),
 };
 #undef K3_INSTANCE
+#undef K3_TC_INSTANCE
 
 template <int DH>
 LaunchPlan plan_f32(int b, int hq, int sq) {
@@ -763,9 +807,9 @@ LaunchPlan plan_f32(int b, int hq, int sq) {
 }
 
 template <int DH>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
-               int hq, int hkv, int sq, int skv, int causal, int window,
-               int q_offset, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int hq, int hkv, int sq, int skv,
+               int causal, int window, int q_offset, cudaStream_t stream) {
   const LaunchPlan p = plan_f32<DH>(b, hq, sq);
   const size_t smem = p.smem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -775,8 +819,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));
   flash_kernel<DH><<<p.grid, p.block, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), hq / hkv, sq, skv,
-      causal, window, q_offset, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, hq / hkv, sq,
+      skv, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -826,33 +870,35 @@ int make_map(CUtensorMap* map, const void* base, int heads, int rows, int dh,
 }
 
 template <int DH>
-LaunchPlan plan_bf16(int b, int hq, int sq) {
-  return LaunchPlan{5 + dh_index<DH>(),
+LaunchPlan plan_bf16(int b, int hq, int sq, bool lse) {
+  return LaunchPlan{(lse ? 10 : 5) + dh_index<DH>(),
                     dim3(b * hq, (sq + kTcBlockQ - 1) / kTcBlockQ),
                     dim3(kTcThreads), static_cast<size_t>(TcLayout<DH>::kSmem)};
 }
 
 template <int DH>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
-                int hq, int hkv, int sq, int skv, int causal, int window,
-                int q_offset, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int b, int hq, int hkv, int sq, int skv,
+                int causal, int window, int q_offset, cudaStream_t stream) {
   using L = TcLayout<DH>;
-  const LaunchPlan p = plan_bf16<DH>(b, hq, sq);
+  const LaunchPlan p = plan_bf16<DH>(b, hq, sq, lse != nullptr);
   const CUtensorMapSwizzle sw = L::kSwizzle;
   CUtensorMap q_map, k_map, v_map;
   int rc = make_map(&q_map, q, b * hq, sq, DH, kTcBlockQ, L::kAtomCols, sw);
   if (rc == 0) rc = make_map(&k_map, k, b * hkv, skv, DH, kBlockK, L::kAtomCols, sw);
   if (rc == 0) rc = make_map(&v_map, v, b * hkv, skv, DH, kBlockK, L::kAtomCols, sw);
   if (rc != 0) return rc;
+  auto* kernel = lse != nullptr ? flash_wgmma_kernel<DH, true>
+                                 : flash_wgmma_kernel<DH, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(p.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const double scale = 1.0 / sqrt(static_cast<double>(DH));
   const float scale_log2 = static_cast<float>(scale * 1.4426950408889634);
-  flash_wgmma_kernel<DH><<<p.grid, p.block, p.smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), hq / hkv, sq, skv,
-      causal, window, q_offset, scale_log2);
+  kernel<<<p.grid, p.block, p.smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse, hq / hkv, sq,
+      skv, causal, window, q_offset, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -886,12 +932,13 @@ extern "C" {
 // o like q, all contiguous on the device; dtype 0 = f32 (the CUDA-core
 // kernel), 1 = bf16 (the tensor-core kernel; q, k and v 16 B aligned for
 // TMA); dh in {32, 64, 96, 112, 128}; hq % hkv == 0; window < 0 means
-// none.
+// none.  lse, when not null, receives each row's log-sum-exp (b, hq, sq)
+// in f32 (the backward's input); serving passes null.
 // Returns cudaGetLastError() after the launch (0 on success), or a code of
 // the tensor-map step (k3_error_string names it).
 int k3_flash_attention(const void* q, const void* k, const void* v, void* o,
-                       int dtype, int b, int hq, int hkv, int sq, int skv,
-                       int dh, int causal, int window, int q_offset,
+                       void* lse, int dtype, int b, int hq, int hkv, int sq,
+                       int skv, int dh, int causal, int window, int q_offset,
                        void* stream) {
   using namespace repro_torch;
   if (b <= 0 || hq <= 0 || sq <= 0) return 0;
@@ -899,10 +946,12 @@ int k3_flash_attention(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
+  auto* lse_f = static_cast<float*>(lse);
   if (dtype == 0) {
     return with_head_dim(dh, [&](auto d) {
-      return launch_f32<decltype(d)::value>(q, k, v, o, b, hq, hkv, sq, skv,
-                                            causal, window, q_offset, s);
+      return launch_f32<decltype(d)::value>(q, k, v, o, lse_f, b, hq, hkv,
+                                            sq, skv, causal, window, q_offset,
+                                            s);
     });
   }
   if (dtype == 1) {
@@ -911,28 +960,31 @@ int k3_flash_attention(const void* q, const void* k, const void* v, void* o,
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
     return with_head_dim(dh, [&](auto d) {
-      return launch_bf16<decltype(d)::value>(q, k, v, o, b, hq, hkv, sq, skv,
-                                             causal, window, q_offset, s);
+      return launch_bf16<decltype(d)::value>(q, k, v, o, lse_f, b, hq, hkv,
+                                             sq, skv, causal, window,
+                                             q_offset, s);
     });
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The launches k3_flash_attention makes for these shapes (none or one),
-// as kPlanInts ints each; budget.cuh says what they hold.
-int k3_plan(int dtype, int b, int hq, int hkv, int sq, int skv, int dh,
+// as kPlanInts ints each; budget.cuh says what they hold.  `variant`: 0 =
+// f32, 1 = bf16, 2 = bf16 with an lse pointer (the training forward).
+int k3_plan(int variant, int b, int hq, int hkv, int sq, int skv, int dh,
             int* out, int* n_launches) {
   using namespace repro_torch;
   *n_launches = 0;
   if (b <= 0 || hq <= 0 || sq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || skv <= 0 || b * hq > 65535 ||
-      (dtype != 0 && dtype != 1)) {
+      variant < 0 || variant > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LaunchPlan p;
   const int rc = with_head_dim(dh, [&](auto d) {
     constexpr int DH = decltype(d)::value;
-    p = dtype == 0 ? plan_f32<DH>(b, hq, sq) : plan_bf16<DH>(b, hq, sq);
+    p = variant == 0 ? plan_f32<DH>(b, hq, sq)
+                     : plan_bf16<DH>(b, hq, sq, variant == 2);
     return 0;
   });
   if (rc != 0) return rc;

@@ -21,6 +21,17 @@ kernel:
   fragments, p rounded to bf16 in registers.
 * f32: ``flash_kernel``, IEEE f32 on the CUDA cores (no TF32).
 
+For training, ``return_lse=True`` also returns each row's log-sum-exp of
+the scaled logits, ``lse (b, hq, sq)`` in f32, which both kernels store in
+their epilogue when given the pointer (serving passes none; in bf16 a
+second instance of the tensor-core kernel stores it, launch variant 2 of
+the plan query, so the serving instance is unchanged); the
+backward (``flash_attention_bwd.py``, K3-bwd) reads it.  The gradient is
+``ops.FlashAttention``, a ``torch.autograd.Function`` whose forward calls
+this wrapper (or the plain version on the CPU) and whose backward calls
+K3-bwd (or its plain twin); ``ops.flash_attention`` takes it whenever an
+input requires a gradient.
+
 Beside it: the plain version ``ref.flash_attention`` and the launch
 counters: ``LAUNCHES`` counts every launch, ``LAUNCHES_TC`` and
 ``LAUNCHES_F32`` each variant.
@@ -43,9 +54,10 @@ LAUNCHES_F32 = build.LaunchCounter("flash_attention_f32_cuda_cores")
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int | None = None,
-                         q_offset: int = 0) -> torch.Tensor:
+                         q_offset: int = 0, return_lse: bool = False):
     """Launch K3 on the current stream: the tensor-core kernel for bf16,
-    the CUDA-core kernel for f32; anything else raises."""
+    the CUDA-core kernel for f32; anything else raises.  Returns the output,
+    and with ``return_lse`` the pair ``(out, lse)``."""
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
@@ -68,14 +80,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = build.library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.k3_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], b, hq, hkv, sq, skv, dh, int(causal),
+            None if lse is None else lse.data_ptr(), DTYPES[q.dtype], b, hq,
+            hkv, sq, skv, dh, int(causal),
             -1 if window is None else int(window), int(q_offset), stream)
     build.check(lib, "k3", rc)
-    LAUNCHES.launched((DTYPES[q.dtype], b, hq, hkv, sq, skv, dh))
+    variant = 2 if lse is not None and q.dtype == torch.bfloat16 \
+        else DTYPES[q.dtype]
+    LAUNCHES.launched((variant, b, hq, hkv, sq, skv, dh))
     (LAUNCHES_TC if q.dtype == torch.bfloat16 else LAUNCHES_F32).count += 1
-    return out
+    return out if lse is None else (out, lse)

@@ -192,9 +192,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, sq, dh)
 
 
+def _live_kv_blocks(sq: int, skv: int, causal: bool, window, q_offset):
+    """Start of every kv block of ``FLASH_BLOCK_K`` keys that some query row
+    of ``[q_offset, q_offset + sq)`` can see (the kernels' skip rule)."""
+    q_lo, q_hi = q_offset, q_offset + sq - 1
+    for k0 in range(0, skv, FLASH_BLOCK_K):
+        if causal and k0 > q_hi:
+            break
+        if window is not None and k0 + FLASH_BLOCK_K - 1 <= q_lo - window:
+            continue
+        yield k0
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, return_lse: bool = False):
     """Plain version of K3: online softmax over kv blocks of
     ``FLASH_BLOCK_K``, step by step as ``_flash_kernel`` computes it.
 
@@ -203,6 +215,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``p = exp(l - m) * mask``; kv blocks dead for every query row are
     skipped; the output is ``acc / max(l, 1e-30)`` in q's dtype.  Peak
     memory is one (sq, FLASH_BLOCK_K) logit block per head.
+
+    With ``return_lse`` it also returns the row log-sum-exp of the scaled
+    logits, ``lse = m + log(l)`` (b, hq, sq) in f32, which the backward
+    (``flash_attention_bwd``) reads; a row that sees no key has
+    ``lse = -inf``.
     """
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -211,12 +228,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.full((b, hkv, group, sq, 1), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, hkv, group, sq, dh), device=q.device)
-    q_lo, q_hi = q_offset, q_offset + sq - 1
-    for k0 in range(0, skv, FLASH_BLOCK_K):
-        if causal and k0 > q_hi:
-            break
-        if window is not None and k0 + FLASH_BLOCK_K - 1 <= q_lo - window:
-            continue
+    for k0 in _live_kv_blocks(sq, skv, causal, window, q_offset):
         kb = k[:, :, k0:k0 + FLASH_BLOCK_K].float()
         vb = v[:, :, k0:k0 + FLASH_BLOCK_K].float()
         mask = _attn_mask(sq, k0, kb.shape[2], causal, window, q_offset,
@@ -230,7 +242,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr + torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
-    return out.reshape(b, hq, sq, dh).to(q.dtype)
+    out = out.reshape(b, hq, sq, dh).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).reshape(b, hq, sq)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: int | None = None,
+                        q_offset: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of K3's backward kernel (``csrc/flash_attention_bwd.cu``),
+    written out kv block by kv block as the kernel computes it, not through
+    autograd.
+
+    In f32, with ``scale = 1/sqrt(dh)``: ``D = rowsum(dO * O)``; per live kv
+    block of ``FLASH_BLOCK_K`` keys, ``P = exp(scale q k^T - lse)`` on the
+    visible (query, key) pairs and 0 elsewhere, ``dP = dO v^T``, ``dS = P *
+    (dP - D)``; ``dV = sum P^T dO`` and ``dK = scale sum dS^T q`` over the
+    q heads of the kv head's group, ``dQ = scale sum dS k`` over the kv
+    blocks.  ``lse`` is the forward's (b, hq, sq) f32 row log-sum-exp.
+    Returns ``(dq, dk, dv)`` in the inputs' dtype; a row that sees no key
+    gets a zero gradient.
+    """
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / float(dh) ** 0.5
+
+    def grouped(t):
+        return t.reshape(b, hkv, group, sq, -1).float()
+
+    qg, dog = grouped(q), grouped(do)
+    dd = (dog * grouped(o)).sum(-1, keepdim=True)          # D, (.., sq, 1)
+    lse_g = lse.reshape(b, hkv, group, sq, 1).float()
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros((b, hkv, skv, dh), device=q.device)
+    dv = torch.zeros_like(dk)
+    for k0 in _live_kv_blocks(sq, skv, causal, window, q_offset):
+        kb = k[:, :, k0:k0 + FLASH_BLOCK_K].float()
+        vb = v[:, :, k0:k0 + FLASH_BLOCK_K].float()
+        mask = _attn_mask(sq, k0, kb.shape[2], causal, window, q_offset,
+                          q.device)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb) * scale
+        p = torch.where(mask, torch.exp(s - lse_g), 0.0)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vb)
+        ds = p * (dp - dd)
+        sl = slice(k0, k0 + kb.shape[2])
+        dv[:, :, sl] = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+        dk[:, :, sl] = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
+        dq += torch.einsum("bhgqk,bhkd->bhgqd", ds, kb)
+    dq = (dq * scale).reshape(b, hq, sq, dh)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -17,15 +17,28 @@ The reference scans a stacked layer tree (for hymba with the per-layer
 window as a traced value, 2**30 for global layers).  The port loops over an
 ``nn.ModuleList`` in Python and resolves each layer's window there: ``None``
 for a global layer, ``cfg.window`` otherwise, so the attention kernel (K3)
-skips the kv blocks a window hides.  ``remat`` (a training option) and
-``use_scan_attention`` (the port has one attention path) are not read.
+skips the kv blocks a window hides.  ``use_scan_attention`` (the port has
+one attention path) is not read.
+
+Training (``forward_train``, ``softmax_xent``) reads ``cfg.remat`` per
+block, as the reference's ``_remat`` wraps its scanned body: ``"none"``
+keeps every activation; ``"dots"`` saves the outputs of the dense products
+(``aten.mm`` / ``aten.addmm``, JAX's ``dots_with_no_batch_dims_saveable``:
+the batched expert and attention products are recomputed); anything else
+(``"full"``, the configs' default) keeps only each block's input and
+recomputes the block, K3 included, in the backward.  Remat applies only
+where a graph is built: serving runs the same stacks with no checkpoint.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
@@ -173,13 +186,39 @@ def block_forward(cfg: ModelConfig, p: Block, x: torch.Tensor,
     return x, aux
 
 
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs of
+    the dense (unbatched) products, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn, p: nn.Module, x: torch.Tensor):
+    """``fn`` under the config's activation checkpointing where a graph is
+    built through the block (grad mode on, and ``x`` or a parameter of
+    ``p`` requires a gradient); ``fn`` itself otherwise."""
+    if cfg.remat == "none" or not torch.is_grad_enabled() or not (
+            x.requires_grad or any(t.requires_grad for t in p.parameters())):
+        return fn
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def run_stack(cfg: ModelConfig, layers: nn.ModuleList, x: torch.Tensor,
-              positions: torch.Tensor):
-    """The layers in order.  Returns (x, per-layer aux list) for prefill."""
+              positions: torch.Tensor, causal: bool = True):
+    """The layers in order (each under ``cfg.remat`` when training).
+    Returns (x, per-layer aux list): kv / SSM state for prefill, the MoE
+    aux loss for training."""
     kept = []
     for i, p in enumerate(layers):
-        x, aux = block_forward(cfg, p, x, positions,
-                               is_global=i in cfg.global_layers)
+        x, aux = _remat(cfg, block_forward, p, x)(
+            cfg, p, x, positions, is_global=i in cfg.global_layers,
+            causal=causal)
         kept.append(aux)
     return x, kept
 
@@ -213,8 +252,7 @@ def encode_audio(cfg: ModelConfig, params: Transformer,
                                   n_layers=cfg.n_enc_layers)
     x = frames.to(cfg.compute_dtype)
     pos = torch.arange(frames.shape[1], device=x.device)
-    for p in params.enc_layers:
-        x, _ = block_forward(enc_cfg, p, x, pos, causal=False)
+    x, _ = run_stack(enc_cfg, params.enc_layers, x, pos, causal=False)
     return norm_apply(cfg, x, params.enc_norm)
 
 
@@ -227,13 +265,74 @@ def run_dec_stack_audio(cfg: ModelConfig, params: Transformer,
     (x, per-layer {"kv": self (k, v), "xkv": cross (k, v)})."""
     kept = []
     for p in params.layers:
-        a_out, kv = _self_attention(cfg, p, norm_apply(cfg, x, p.norm1),
-                                    positions, True, cfg.window)
-        x = x + a_out
-        q = attn.query(cfg, p.xattn, norm_apply(cfg, x, p.norm_x), positions)
-        kx, vx = attn.kv_of(cfg, p.xattn, enc_out)
-        out = attn.attend(cfg, q, kx, vx, causal=False)
-        x = x + dense_apply(p.xattn.wo, attn.merge_heads(out))
-        x = x + mlp_mod.apply_dense(cfg, p.mlp, norm_apply(cfg, x, p.norm2))
-        kept.append({"kv": kv, "xkv": (kx, vx)})
+        x, aux = _remat(cfg, _dec_block_audio, p, x)(cfg, p, x, positions,
+                                                     enc_out)
+        kept.append(aux)
     return x, kept
+
+
+def _dec_block_audio(cfg: ModelConfig, p: Block, x: torch.Tensor,
+                     positions: torch.Tensor, enc_out: torch.Tensor):
+    """One whisper decoder block -> (x, {"kv", "xkv"})."""
+    a_out, kv = _self_attention(cfg, p, norm_apply(cfg, x, p.norm1),
+                                positions, True, cfg.window)
+    x = x + a_out
+    q = attn.query(cfg, p.xattn, norm_apply(cfg, x, p.norm_x), positions)
+    kx, vx = attn.kv_of(cfg, p.xattn, enc_out)
+    out = attn.attend(cfg, q, kx, vx, causal=False)
+    x = x + dense_apply(p.xattn.wo, attn.merge_heads(out))
+    x = x + mlp_mod.apply_dense(cfg, p.mlp, norm_apply(cfg, x, p.norm2))
+    return x, {"kv": kv, "xkv": (kx, vx)}
+
+
+# ---------------------------------------------------------------------------
+# Training: the token-level loss of every family
+# ---------------------------------------------------------------------------
+
+
+def forward_train(cfg: ModelConfig, params: Transformer, batch: dict
+                  ) -> tuple[torch.Tensor, dict]:
+    """Token-level LM loss (+ aux) of every family -> ``(loss, metrics)``.
+
+    ``batch``: ``tokens`` and ``labels`` (b, s) int; the vlm family may add
+    ``patch_embeds`` (b, n_patches, d), prepended to the tokens and cut off
+    before the logits; whisper reads ``frames`` (b, se, d) through its
+    encoder.  The MoE's aux loss is summed over the layers into the loss.
+    """
+    if cfg.family == "audio":
+        enc_out = encode_audio(cfg, params, batch["frames"])
+        x = embed_tokens(cfg, params, batch["tokens"])
+        pos = torch.arange(batch["tokens"].shape[1], device=x.device)
+        x, kept = run_dec_stack_audio(cfg, params, x, pos, enc_out)
+    else:
+        x = embed_tokens(cfg, params, batch["tokens"])
+        patches = batch.get("patch_embeds") if cfg.family == "vlm" else None
+        if patches is not None:
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        pos = torch.arange(x.shape[1], device=x.device)
+        x, kept = run_stack(cfg, params.layers, x, pos)
+        if patches is not None:
+            x = x[:, patches.shape[1]:]
+
+    logits = logits_from_x(cfg, params, x)
+    loss, metrics = softmax_xent(logits, batch["labels"])
+    if cfg.family == "moe":
+        aux = torch.stack([a["moe_aux"] for a in kept]).sum()
+        loss = loss + aux
+        metrics["moe_aux"] = aux
+    return loss, metrics
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 z_coef: float = 1e-4) -> tuple[torch.Tensor, dict]:
+    """CE over valid (label >= 0) positions + z-loss ``z_coef * lse**2``,
+    all f32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, torch.clamp(labels, min=0)[..., None].long()
+                      )[..., 0]
+    valid = (labels >= 0).float()
+    n = torch.clamp(valid.sum(), min=1.0)
+    xent = torch.sum((lse - ll) * valid) / n
+    zloss = z_coef * torch.sum((lse ** 2) * valid) / n
+    return xent + zloss, {"xent": xent, "zloss": zloss, "ppl_tokens": n}

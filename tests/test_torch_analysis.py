@@ -579,7 +579,7 @@ def test_reg_spill_waiver_holds_the_measured_frame_only():
 def test_record_launches_collects_the_wrappers_shapes():
     """The launch counters collect each launch's plan arguments only
     inside ``record_launches``, and count every launch either way."""
-    from repro_torch.kernels import rbf, ssd
+    from repro_torch.kernels import flash_attention_bwd, rbf, ssd
 
     before = rbf.LAUNCHES.count
     rbf.LAUNCHES.launched((1, 2, 3, 4, 1))
@@ -587,14 +587,18 @@ def test_record_launches_collects_the_wrappers_shapes():
         rbf.LAUNCHES.launched((3, 188, 71, 4, 1))
         rbf.LAUNCHES.launched((3, 188, 71, 4, 1))
         ssd.LAUNCHES.launched((4, 2048, 50, 1, 64, 16, 128, 0))
+        flash_attention_bwd.LAUNCHES.launched((1, 2, 16, 8, 4096, 4096, 64))
     rbf.LAUNCHES.launched((5, 6, 7, 4, 1))
     assert seen == {"kernel_matrix": {(3, 188, 71, 4, 1)}, "solver": set(),
                     "flash_attention": set(),
-                    "ssd": {(4, 2048, 50, 1, 64, 16, 128, 0)}}
+                    "ssd": {(4, 2048, 50, 1, 64, 16, 128, 0)},
+                    "flash_attention_bwd": {(1, 2, 16, 8, 4096, 4096, 64)}}
     assert rbf.LAUNCHES.count == before + 4
     assert rbf.LAUNCHES.shapes is None and ssd.LAUNCHES.shapes is None
+    assert flash_attention_bwd.LAUNCHES.shapes is None
     rbf.LAUNCHES.count = before
     ssd.LAUNCHES.count -= 1
+    flash_attention_bwd.LAUNCHES.count -= 1
 
 
 def _cu_constants(library: str) -> dict:
@@ -625,6 +629,9 @@ MIRROR_CONSTANTS = {
                         "K3_TC_THREADS": "kTcThreads", "K3_STAGES": "kStages"},
     "ssd": {"K4_THREADS": "kThreads", "K4_MAX_CHUNK": "kMaxChunk",
             "K4_STRIP_LD": "kStripLd"},
+    "flash_attention_bwd": {"K3B_BLOCK_Q": "kBlockQ",
+                            "K3B_BLOCK_K": "kBlockK",
+                            "K3B_THREADS": "kThreads"},
 }
 
 

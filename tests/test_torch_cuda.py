@@ -10,14 +10,21 @@ only the port is installed.  Tolerances are those of
 tests/test_torch_kernels.py (K1: atol max(5e-6, 2e-6 gamma), rtol 1e-5;
 K2) and tests/test_torch_lm_kernels.py (K3: 2e-5 in f32, 2e-2 in bf16, at
 every head dim the configs use, 32 to 128; K4 and each of its passes: atol
-1e-4, at state widths up to 128).
+1e-4, at state widths up to 128).  K3-bwd against its plain twin: f32 max
+|err| <= 1e-4 * max(1, max|plain|), bf16 relative L2 <= 2^-7 against the
+twin run in f32 on the same bf16 inputs, lse within 1e-5 of the logits'
+logsumexp; a train step on the card against the same step with the plain
+versions: loss 1e-5 relative, gradients 1e-4 * max(1, max|g|) and
+relative L2 1e-2 per leaf.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.analysis import kernel_budget
-from repro_torch.kernels import flash_attention, rbf, ref, solver, ssd
+from repro_torch.kernels import (
+    flash_attention, flash_attention_bwd, ops, rbf, ref, solver, ssd,
+)
 
 
 def _t(a):
@@ -860,7 +867,8 @@ def test_mesh_legs_on_one_card_equal_the_unsharded_paths(card):
 BUDGET_THREADS = {"kernel_matrix_kernel": 256, "solver_kernel": 1024,
                   "flash_kernel": 256, "flash_wgmma_kernel": 288,
                   "ssd_chunk_state_kernel": 256, "ssd_state_pass_kernel": 256,
-                  "ssd_chunk_scan_kernel": 256}
+                  "ssd_chunk_scan_kernel": 256, "bwd_dot_kernel": 256,
+                  "bwd_dkv_kernel": 256, "bwd_dq_kernel": 256}
 
 
 @pytest.mark.cuda
@@ -944,3 +952,166 @@ def test_analysis_gate_on_the_card(card):
     root = Path(__file__).resolve().parent.parent
     assert main(["--root", str(root), "--device", "cuda", "--baseline",
                  str(root / "analysis_baseline_torch.json")]) == 0
+
+
+# ---------------------------------------------------------------------------
+# K3-bwd and the training path
+# ---------------------------------------------------------------------------
+
+#: (b, hq, hkv, sq, skv, dh, causal, window, q_offset)
+K3B_CASES = {
+    "causal_gqa": (2, 4, 2, 300, 300, 64, True, None, 0),
+    "window": (1, 5, 1, 400, 400, 64, True, 96, 0),
+    "noncausal_ragged": (1, 4, 4, 150, 150, 32, False, None, 0),
+    "cross": (2, 4, 2, 40, 230, 64, False, None, 0),
+    "q_offset": (1, 4, 2, 70, 333, 32, True, 100, 263),
+}
+
+
+def _k3b_inputs(case, dtype, dev, seed=0):
+    b, hq, hkv, sq, skv, dh = K3B_CASES[case][:6]
+    q, k, v = _qkv(seed, b, hq, hkv, sq, skv, dh, dtype, dev)
+    do = torch.as_tensor(np.random.RandomState(seed + 1).randn(b, hq, sq, dh),
+                         dtype=torch.float32).to(device=dev, dtype=dtype)
+    return q, k, v, do
+
+
+def _rel_l2(got, want):
+    return float(torch.linalg.norm((got.float() - want.float()).reshape(-1))
+                 / torch.linalg.norm(want.float().reshape(-1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(K3B_CASES))
+def test_k3_bwd_kernel_matches_its_plain_twin(card, case, dtype):
+    causal, window, q_offset = K3B_CASES[case][6:]
+    q, k, v, do = _k3b_inputs(case, dtype, card)
+    o, lse = flash_attention.flash_attention_cuda(q, k, v, causal, window,
+                                                  q_offset, return_lse=True)
+    before = flash_attention_bwd.LAUNCHES.count
+    got = flash_attention_bwd.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal, window, q_offset)
+    again = flash_attention_bwd.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal, window, q_offset)
+    f32 = [t.float() for t in (q, k, v, o)]
+    want = ref.flash_attention_bwd(*f32, lse, do.float(), causal, window,
+                                   q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.LAUNCHES.count == before + 2
+    for g, g2, w in zip(got, again, want):
+        assert g.dtype == dtype and torch.equal(g, g2)
+        if dtype == torch.float32:
+            tol = 1e-4 * max(1.0, float(w.abs().max()))
+            assert float((g - w).abs().max()) <= tol
+        else:
+            assert _rel_l2(g, w) <= 2 ** -7
+    _, lse_plain = ref.flash_attention(*f32[:3], causal, window, q_offset,
+                                       return_lse=True)
+    assert float((lse - lse_plain).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_k3_bwd_planted_fault_fails_the_check(card):
+    """Negative control: every q block dropping its last visible kv block
+    fails the f32 check the kernel passes."""
+    q, k, v, do = _k3b_inputs("causal_gqa", torch.float32, card)
+    o, lse = flash_attention.flash_attention_cuda(q, k, v, return_lse=True)
+    bad = flash_attention_bwd.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, fault=flash_attention_bwd.FAULT_DROP_LAST_KV_BLOCK)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for g, w in zip(bad, want):
+        assert float((g - w).abs().max()) > 1e-4 * max(
+            1.0, float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_k3_bwd_refuses_other_head_dims(card):
+    q, k, v, do = _qkv(1, 1, 2, 1, 64, 64, 96, torch.bfloat16, card) + [None]
+    o, lse = flash_attention.flash_attention_cuda(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="96"):
+        flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, o, lse, o)
+
+
+def _plain_kernels(monkeypatch):
+    """Route the card's K3 and K3-bwd calls to their plain versions."""
+    monkeypatch.setattr(flash_attention, "flash_attention_cuda",
+                        ref.flash_attention)
+    monkeypatch.setattr(flash_attention_bwd, "flash_attention_bwd_cuda",
+                        ref.flash_attention_bwd)
+
+
+def _train_grads(cfg, state, batch):
+    from repro_torch.models import transformer as tfm
+
+    for t in state["params"].parameters():
+        t.grad = None
+    loss, _ = tfm.forward_train(cfg, state["params"], batch)
+    loss.backward()
+    return float(loss), [t.grad.clone() for t in state["params"].parameters()]
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_plain_versions(card, monkeypatch):
+    """Reduced granite-moe in f32 (B = 2, S = 200, remat "full"): the
+    card's loss and gradients through K3 / K3-bwd against the same model
+    with the plain versions on the card; every leaf's gradient finite and
+    nonzero; K3-bwd with dq zeroed fails the check."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import step as step_mod
+
+    cfg = dataclasses.replace(configs.get("granite-moe-1b-a400m").reduced(),
+                              remat="full")
+    state = step_mod.init_train_state(cfg, opt_mod.AdamWConfig(), 0, card)
+    rng = np.random.RandomState(0)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 201)),
+                           device=card)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ops.reset_launches()
+    loss, grads = _train_grads(cfg, state, batch)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention_bwd"] == cfg.n_layers
+    for g in grads:
+        assert torch.isfinite(g).all() and g.abs().max() > 0
+
+    with monkeypatch.context() as m:
+        _plain_kernels(m)
+        loss_p, grads_p = _train_grads(cfg, state, batch)
+    assert abs(loss - loss_p) <= 1e-5 * abs(loss_p)
+    for g, w in zip(grads, grads_p):
+        assert float((g - w).abs().max()) <= 1e-4 * max(
+            1.0, float(w.abs().max()))
+        assert _rel_l2(g, w) <= 1e-2
+
+    real = flash_attention_bwd.flash_attention_bwd_cuda
+
+    def dq_zeroed(*args, **kw):
+        dq, dk, dv = real(*args, **kw)
+        return torch.zeros_like(dq), dk, dv
+
+    with monkeypatch.context() as m:
+        m.setattr(flash_attention_bwd, "flash_attention_bwd_cuda", dq_zeroed)
+        _, grads_bad = _train_grads(cfg, state, batch)
+    # Most leaves' gradients are far below 1, so the dropped dq shows in
+    # the relative L2 (1.0 on the query projection's leaf).
+    assert max(_rel_l2(g, w) for g, w in zip(grads_bad, grads_p)) > 1e-2
+
+
+@pytest.mark.cuda
+def test_ssm_training_on_card_raises(card):
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import step as step_mod
+
+    cfg = configs.get("hymba-1.5b").reduced()
+    state = step_mod.init_train_state(cfg, opt_mod.AdamWConfig(), 0, card)
+    toks = torch.zeros(2, 41, dtype=torch.long, device=card)
+    with pytest.raises(NotImplementedError, match="A12"):
+        tfm.forward_train(cfg, state["params"],
+                          {"tokens": toks[:, :-1], "labels": toks[:, 1:]})

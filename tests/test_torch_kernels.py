@@ -212,12 +212,14 @@ def test_cpu_tensors_run_the_plain_versions_uncounted():
     ops.rbf_matrix(_t(x[0]), _t(x), _t(gamma[:, 0]))
     q = torch.zeros((1, 2, 8, 32))
     ops.flash_attention(q, q[:, :1], q[:, :1])
+    qg = q.clone().requires_grad_(True)
+    ops.flash_attention(qg, q[:, :1], q[:, :1]).sum().backward()
     xs = torch.zeros((1, 32, 2, 16))
     ops.ssd_scan(xs, xs[..., 0], xs[:, :, :1], xs[:, :, :1], chunk=32)
     assert ops.launch_counts() == {
         "kernel_matrix": 0, "solver": 0, "flash_attention": 0,
         "flash_attention_bf16_wgmma": 0, "flash_attention_f32_cuda_cores": 0,
-        "ssd": 0}
+        "ssd": 0, "flash_attention_bwd": 0}
 
 
 def test_other_devices_and_cpu_tensors_never_reach_a_kernel():
