@@ -181,25 +181,37 @@ Phases, in order; any failure exits nonzero before the result line:
    ``python -m repro_torch.analysis --device cuda --baseline
    analysis_baseline_torch.json`` must exit 0.
 
-14. LM training (run after phase 12, inside phase 13's launch recording),
-   granite-moe-1b-a400m: (a) K3-bwd against its plain twin (f32, on the
-   same inputs) at granite-moe's training shape, hymba's SWA layer,
-   whisper's encoder and a dh-32 ``q_offset`` case, each in bf16 and f32
-   (f32 max |err| <= 1e-4 max(1, max |plain|), bf16 relative L2 <= 2^-7,
-   lse within 1e-5 of ``torch.logsumexp``), two launches bit for bit, a
-   planted fault (every q block dropping its last visible kv block)
-   caught; ms per call beside the bound (10 dh operations per live pair
-   and q head), the plain twin's and SDPA's backward, and K3's forward
-   with and without the lse store.  (b) A full-width 2-layer f32 step at
-   B = 2, S = 1100: loss and every gradient leaf through the kernels
-   against the plain versions on the card, every leaf finite and nonzero,
-   K3-bwd with dq zeroed caught, hymba raising K4's NotImplementedError.
-   (c) ``launch.train.main`` at full width, 6 steps of 4 x 4096 tokens,
-   grad_accum 2: exactly 96 K3 forward (tensor-core), 48 K3-bwd and 0 K4
-   launches in step 2, finite losses and grad norms, s/step, tokens/s,
-   peak memory and one traced step; then the 2-layer resume check (4
-   steps against 2 + checkpoint + restore + 2, the last two losses within
-   1e-3 relative) with the save's and restore's seconds and bytes.
+14. LM training (run after phase 12, inside phase 13's launch recording):
+   (a) K3-bwd against its plain twin (f32, on the same inputs) at
+   granite-moe's training shape, hymba's SWA layer, whisper's encoder, a
+   dh-32 ``q_offset`` case and the training microbatches of phi-3-vision
+   (dh 96), kimi-k2 (dh 112), starcoder2, command-r, qwen2.5-32b and
+   granite-20b (dh 128, MQA), each in bf16 (the tensor-core kernels) and
+   f32 (the CUDA-core kernels) (f32 max |err| <= 1e-4 max(1, max
+   |plain|), bf16 relative L2 <= 2^-7, lse within 1e-5 of
+   ``torch.logsumexp``), two launches bit for bit, a planted fault (every
+   q block dropping its last visible kv block) caught; ms per call beside
+   the bound (10 dh operations per live pair and q head), the plain
+   twin's and SDPA's backward, and K3's forward with and without the lse
+   store.  (b) Full-width 2-layer f32 steps (granite-moe at B = 2, S =
+   1100; phi-3-vision, kimi-k2 with 8 experts and starcoder2 at B = 2, S
+   = 600): loss and every gradient leaf through the kernels against the
+   plain versions on the card, every leaf finite and nonzero, K3-bwd with
+   dq zeroed caught; the same in the trainer's bf16 (phi-3-vision and
+   starcoder2 at B = 2, S = 4096: leaves within relative L2 2^-4, the
+   loss within 2^-8, each K3-bwd call of the step within 2^-7 of its
+   twin on its own inputs); hymba raising K4's NotImplementedError.  (c)
+   ``launch.train.main`` on granite-moe at full width, 6 steps of 4 x 4096
+   tokens, grad_accum 2: exactly 96 K3 forward (tensor-core), 48 K3-bwd
+   and 0 K4 launches in step 2, finite losses and grad norms, s/step,
+   tokens/s, peak memory and one traced step; then the 2-layer resume
+   check (4 steps against 2 + checkpoint + restore + 2, the last two
+   losses within 1e-3 relative) with the save's and restore's seconds and
+   bytes; then the six large-head-dim configs (``TRAIN_RUNS``: phi-3-vision
+   at full width with ``--opt8``, the others at full width and 2 layers),
+   3 steps each, with their launch counts, s/step, tokens/s and peak
+   memory; then starcoder2's three steps again with the plain attention
+   and with f32 moments, beside the kernels' losses (``RISE_ARCH``).
 
 Each phase prints its wall time.  Then it prints the ``kernels`` JSON
 line, the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
@@ -2690,6 +2702,12 @@ K3B_SHAPES = {
     "hymba swa": (4, 25, 5, 2048, 2048, 64, True, 1024, 0),
     "whisper encoder": (4, 16, 16, 1500, 1500, 64, False, None, 0),
     "dh 32, q_offset": (2, 8, 2, 1000, 1100, 32, True, None, 100),
+    "phi-3-vision training": (2, 32, 32, 4096, 4096, 96, True, None, 0),
+    "kimi-k2 training": (1, 64, 8, 4096, 4096, 112, True, None, 0),
+    "starcoder2 training": (2, 36, 4, 4096, 4096, 128, True, None, 0),
+    "command-r training": (1, 64, 8, 4096, 4096, 128, True, None, 0),
+    "qwen2.5-32b training": (2, 40, 8, 4096, 4096, 128, True, None, 0),
+    "granite-20b training": (2, 48, 1, 4096, 4096, 128, True, None, 0),
 }
 #: Phase 14 (b): each gradient leaf's relative L2 against the plain
 #: versions' (beside max |err| <= 1e-4 max(1, max |g|)): loose enough for a
@@ -2754,10 +2772,11 @@ def sdpa_backward_ms(q, k, v, do, causal, window, q_offset) -> float:
 
 def check_k3_bwd(dev) -> list:
     """Phase 14 (a): K3-bwd against its plain twin at ``K3B_SHAPES`` in
-    bf16 and f32; two launches bit for bit; the planted fault (every q
-    block dropping its last visible kv block) caught; lse against
-    ``torch.logsumexp``; times beside the bound, the plain twin's and
-    SDPA's backward; K3's forward with and without the lse store."""
+    bf16 (the tensor-core kernels) and f32 (the CUDA-core kernels); two
+    launches bit for bit; the planted fault (every q block dropping its
+    last visible kv block) caught; lse against ``torch.logsumexp``; times
+    beside the bound, the plain twin's and SDPA's backward; K3's forward
+    with and without the lse store."""
     import torch
 
     from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
@@ -2788,7 +2807,14 @@ def check_k3_bwd(dev) -> list:
                     q.float(), k.float(), v.float(), o.float(), lse,
                     do.float(), *mask)
 
+            variant = (flash_attention_bwd.LAUNCHES_TC
+                       if dtype == torch.bfloat16
+                       else flash_attention_bwd.LAUNCHES_F32)
+            before = variant.count
             got, again, want = run(), run(), plain()
+            if variant.count != before + 2:
+                raise AssertionError(f"K3-bwd {name} {dtype}: not the "
+                                     f"{variant.name} kernels")
             bad = run(flash_attention_bwd.FAULT_DROP_LAST_KV_BLOCK)
             torch.cuda.synchronize()
             errs, fault_caught = {}, True
@@ -2855,22 +2881,47 @@ def check_k3_bwd(dev) -> list:
     return rows
 
 
-def _grads(cfg, model, batch) -> tuple:
+def _grads(cfg, model, batch) -> float:
+    """The loss; the gradient is left in each parameter's ``.grad``."""
     from repro_torch.models import transformer as tfm
 
     for t in model.parameters():
         t.grad = None
     loss, _ = tfm.forward_train(cfg, model, batch)
     loss.backward()
-    return float(loss), [t.grad.clone() for t in model.parameters()]
+    return float(loss.detach())
 
 
-def small_train_step(dev) -> dict:
-    """Phase 14 (b): granite-moe at full width, 2 layers, f32, B = 2, S =
-    1100: loss and every gradient leaf through K3 / K3-bwd against the
+def _worst(model, want) -> tuple:
+    """The worst leaf of ``model``'s ``.grad`` against ``want`` by the
+    stated tolerance (max |err| over max(1, max |g|)), and by relative L2:
+    most leaves' gradients are far below 1, where the first alone would
+    pass a dropped gradient."""
+    err = rel = 0.0
+    for t, w in zip(model.parameters(), want):
+        err = max(err, float((t.grad - w).abs().max())
+                  / max(1.0, float(w.abs().max())))
+        rel = max(rel, rel_l2(t.grad, w))
+    return err, rel
+
+
+#: Phase 14 (b): (config overrides, batch, sequence) of the full-width
+#: 2-layer f32 steps; kimi-k2's 384 experts cut to 8 as phase 12 serves it.
+SMALL_STEPS = {
+    TRAIN_ARCH: (dict(n_layers=2), 2, 1100),
+    "phi-3-vision-4.2b": (dict(n_layers=2), 2, 600),
+    "kimi-k2-1t-a32b": (dict(n_layers=2, n_experts=8), 2, 600),
+    "starcoder2-7b": (dict(n_layers=2), 2, 600),
+}
+
+
+def small_train_step(dev, arch: str) -> dict:
+    """Phase 14 (b), one config of ``SMALL_STEPS`` in f32 with remat
+    "full": loss and every gradient leaf through K3 / K3-bwd against the
     same model with the plain versions on the card; every leaf's gradient
-    finite and nonzero; K3-bwd with dq zeroed fails the check; hymba's
-    reduced config raises K4's NotImplementedError on the card."""
+    finite and nonzero; K3-bwd with dq zeroed fails the check; 2 K3 and 1
+    K3-bwd launches per layer.  Only the plain versions' gradients are
+    kept beside the model's own."""
     import dataclasses
 
     import numpy as np
@@ -2879,67 +2930,95 @@ def small_train_step(dev) -> dict:
     from repro_torch import configs
     from repro_torch.kernels import flash_attention, flash_attention_bwd, ops
     from repro_torch.kernels import ref
-    from repro_torch.models import transformer as tfm
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import step as step_mod
 
-    cfg = dataclasses.replace(configs.get(TRAIN_ARCH).make_config(),
-                              n_layers=2, dtype="float32", remat="full")
+    over, b, seq = SMALL_STEPS[arch]
+    cfg = dataclasses.replace(configs.get(arch).make_config(), **over,
+                              dtype="float32", remat="full")
     model = step_mod.init_train_state(cfg, opt_mod.AdamWConfig(), 0,
                                       dev)["params"]
     rng = np.random.RandomState(14)
-    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 1101)),
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, seq + 1)),
                            device=dev)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    ops.reset_launches()
-    loss, grads = _grads(cfg, model, batch)
-    counts = ops.launch_counts()
-    names = [n for n, _ in model.named_parameters()]
-    dead = [n for n, g in zip(names, grads)
-            if not (torch.isfinite(g).all() and g.abs().max() > 0)]
-    if dead:
-        raise AssertionError(f"no finite nonzero gradient on the card: {dead}")
     real_fwd = flash_attention.flash_attention_cuda
     real_bwd = flash_attention_bwd.flash_attention_bwd_cuda
     try:
         flash_attention.flash_attention_cuda = ref.flash_attention
         flash_attention_bwd.flash_attention_bwd_cuda = ref.flash_attention_bwd
-        loss_p, grads_p = _grads(cfg, model, batch)
+        loss_p = _grads(cfg, model, batch)
+        grads_p = [t.grad.clone() for t in model.parameters()]
         flash_attention.flash_attention_cuda = real_fwd
+        flash_attention_bwd.flash_attention_bwd_cuda = real_bwd
+
+        ops.reset_launches()
+        loss = _grads(cfg, model, batch)
+        counts = ops.launch_counts()
+        names = [n for n, _ in model.named_parameters()]
+        dead = [n for n, t in model.named_parameters()
+                if not (torch.isfinite(t.grad).all() and t.grad.abs().max() > 0)]
+        if dead:
+            raise AssertionError(f"{arch}: no finite nonzero gradient on the "
+                                 f"card: {dead}")
+        grad_err, grad_rel = _worst(model, grads_p)
 
         def dq_zeroed(*args, **kw):
             dq, dk, dv = real_bwd(*args, **kw)
             return torch.zeros_like(dq), dk, dv
 
         flash_attention_bwd.flash_attention_bwd_cuda = dq_zeroed
-        _, grads_bad = _grads(cfg, model, batch)
+        _grads(cfg, model, batch)
+        bad_err, bad_rel = _worst(model, grads_p)
     finally:
         flash_attention.flash_attention_cuda = real_fwd
         flash_attention_bwd.flash_attention_bwd_cuda = real_bwd
 
-    def worst(gs):
-        """The worst leaf by the stated tolerance (max |err| over max(1,
-        max |g|)), and by relative L2: most leaves' gradients are far
-        below 1, where the first alone would pass a dropped gradient."""
-        return (max(float((g - w).abs().max()) / max(1.0, float(
-                    w.abs().max())) for g, w in zip(gs, grads_p)),
-                max(rel_l2(g, w) for g, w in zip(gs, grads_p)))
-
     loss_rel = abs(loss - loss_p) / abs(loss_p)
-    (grad_err, grad_rel), (bad_err, bad_rel) = worst(grads), worst(grads_bad)
     if loss_rel > 1e-5 or grad_err > 1e-4 or grad_rel > GRAD_REL_L2:
-        raise AssertionError(f"train step kernels vs plain: loss rel "
+        raise AssertionError(f"{arch} train step kernels vs plain: loss rel "
                              f"{loss_rel}, worst gradient {grad_err}, worst "
                              f"relative L2 {grad_rel}")
     if bad_err <= 1e-4 and bad_rel <= GRAD_REL_L2:
-        raise AssertionError("the gradient check passed K3-bwd with dq "
-                             "zeroed")
-    if counts["flash_attention"] != 4 or counts["flash_attention_bwd"] != 2:
-        raise AssertionError(f"small step launches {counts}")
+        raise AssertionError(f"{arch}: the gradient check passed K3-bwd with "
+                             "dq zeroed")
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_f32_cuda_cores": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers,
+            "flash_attention_bwd_f32_cuda_cores": cfg.n_layers, "ssd": 0}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"{arch} small step launches {counts}")
+    del model, grads_p
+    torch.cuda.empty_cache()
+    row = dict(config=f"{arch} full width, {cfg.n_layers} layers, f32, "
+                      f"B {b}, S {seq}", cut=over, head_dim=cfg.head_dim,
+               loss=loss, loss_rel_err=loss_rel,
+               worst_grad_err_over_max=grad_err,
+               worst_grad_rel_l2=grad_rel, leaves=len(names),
+               dq_zeroed_err_over_max=bad_err, dq_zeroed_rel_l2=bad_rel,
+               launches=counts)
+    log("TRAIN-SMALL", json.dumps(row))
+    return row
+
+
+def small_train_steps(dev) -> dict:
+    """Phase 14 (b): every ``SMALL_STEPS`` config, every ``BF16_STEPS``
+    config, then hymba's reduced config raising K4's NotImplementedError
+    on the card."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import step as step_mod
+
+    rows = {arch: small_train_step(dev, arch) for arch in SMALL_STEPS}
+    bf16 = {arch: bf16_train_step(dev, arch) for arch in BF16_STEPS}
     hymba = configs.get("hymba-1.5b").reduced()
     hmodel = step_mod.init_train_state(hymba, opt_mod.AdamWConfig(), 0,
                                        dev)["params"]
-    htoks = toks[:, :41] % hymba.vocab_size
+    htoks = torch.randint(0, hymba.vocab_size, (2, 41), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(14))
     try:
         tfm.forward_train(hymba, hmodel, {"tokens": htoks[:, :-1],
                                           "labels": htoks[:, 1:]})
@@ -2948,16 +3027,114 @@ def small_train_step(dev) -> dict:
     else:
         raise AssertionError("hymba trained on the card without K4's "
                              "backward")
-    del model, grads, grads_p, grads_bad, hmodel
+    del hmodel
     torch.cuda.empty_cache()
-    row = dict(config=f"{TRAIN_ARCH} full width, 2 layers, f32, B 2, S 1100",
-               loss=loss, loss_rel_err=loss_rel,
-               worst_grad_err_over_max=grad_err,
-               worst_grad_rel_l2=grad_rel, leaves=len(names),
+    return dict(steps=rows, bf16_steps=bf16, k4_raises=k4_raises)
+
+
+#: Phase 14 (b), bf16: (config overrides, batch, sequence) of the
+#: full-width 2-layer steps in the trainer's bf16 over f32 masters, at
+#: ``TRAIN_RUNS``' microbatch shapes: dh 96, and dh 128 (K3-bwd's split
+#: plan).
+BF16_STEPS = {
+    "phi-3-vision-4.2b": (dict(n_layers=2), 2, 4096),
+    "starcoder2-7b": (dict(n_layers=2), 2, 4096),
+}
+#: Each bf16 gradient leaf's relative L2 against the plain versions' (f32
+#: attention rounded to bf16 once): 8x K3-bwd's own 2^-7 per call, for the
+#: bf16 roundings both paths carry on through two layers and the loss; a
+#: dropped dq puts a leaf at 1.  The loss within half a bf16 ulp, 2^-8.
+BF16_GRAD_REL_L2 = 2 ** -4
+BF16_LOSS_REL = 2 ** -8
+
+
+def bf16_train_step(dev, arch: str) -> dict:
+    """Phase 14 (b), one config of ``BF16_STEPS``: the loss and every
+    gradient leaf through K3 / K3-bwd against the same model with the plain
+    versions on the card (``BF16_LOSS_REL``, ``BF16_GRAD_REL_L2``); each
+    K3-bwd call of the step against the plain twin on its own inputs (dq,
+    dk, dv within relative L2 2^-7, as phase 14 (a)); K3-bwd with dq zeroed
+    caught; 2 K3 and 1 K3-bwd launches per layer, all tensor-core."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ops
+    from repro_torch.kernels import ref
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import step as step_mod
+
+    over, b, seq = BF16_STEPS[arch]
+    cfg = dataclasses.replace(configs.get(arch).make_config(), **over)
+    model = step_mod.init_train_state(cfg, opt_mod.AdamWConfig(), 0,
+                                      dev)["params"]
+    rng = np.random.RandomState(14)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, seq + 1)),
+                           device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    real_fwd = flash_attention.flash_attention_cuda
+    real_bwd = flash_attention_bwd.flash_attention_bwd_cuda
+    calls = []
+
+    def checked(q, k, v, o, lse, do, *mask):
+        got = real_bwd(q, k, v, o, lse, do, *mask)
+        want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                       o.float(), lse, do.float(), *mask)
+        calls.append({f"d{n}": rel_l2(g, w)
+                      for n, g, w in zip("qkv", got, want)})
+        return got
+
+    def dq_zeroed(*args):
+        dq, dk, dv = real_bwd(*args)
+        return torch.zeros_like(dq), dk, dv
+
+    try:
+        flash_attention.flash_attention_cuda = ref.flash_attention
+        flash_attention_bwd.flash_attention_bwd_cuda = ref.flash_attention_bwd
+        loss_p = _grads(cfg, model, batch)
+        grads_p = [t.grad.clone() for t in model.parameters()]
+        flash_attention.flash_attention_cuda = real_fwd
+        flash_attention_bwd.flash_attention_bwd_cuda = checked
+
+        ops.reset_launches()
+        loss = _grads(cfg, model, batch)
+        counts = ops.launch_counts()
+        grad_err, grad_rel = _worst(model, grads_p)
+        flash_attention_bwd.flash_attention_bwd_cuda = dq_zeroed
+        _grads(cfg, model, batch)
+        bad_err, bad_rel = _worst(model, grads_p)
+    finally:
+        flash_attention.flash_attention_cuda = real_fwd
+        flash_attention_bwd.flash_attention_bwd_cuda = real_bwd
+
+    loss_rel = abs(loss - loss_p) / abs(loss_p)
+    call_rel = max(max(c.values()) for c in calls)
+    if loss_rel > BF16_LOSS_REL or grad_rel > BF16_GRAD_REL_L2 or \
+            call_rel > 2 ** -7 or len(calls) != cfg.n_layers:
+        raise AssertionError(f"{arch} bf16 step kernels vs plain: loss rel "
+                             f"{loss_rel}, worst relative L2 {grad_rel}, "
+                             f"K3-bwd calls against the twin {calls}")
+    if bad_rel <= BF16_GRAD_REL_L2:
+        raise AssertionError(f"{arch}: the bf16 gradient check passed K3-bwd "
+                             "with dq zeroed")
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bf16_wgmma": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers,
+            "flash_attention_bwd_bf16_wgmma": cfg.n_layers, "ssd": 0}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"{arch} bf16 step launches {counts}")
+    del model, grads_p
+    torch.cuda.empty_cache()
+    row = dict(config=f"{arch} full width, {cfg.n_layers} layers, "
+                      f"{cfg.dtype} over f32 masters, B {b}, S {seq}",
+               cut=over, head_dim=cfg.head_dim, loss=loss, loss_plain=loss_p,
+               loss_rel_err=loss_rel, worst_grad_err_over_max=grad_err,
+               worst_grad_rel_l2=grad_rel, k3_bwd_calls_rel_l2=calls,
                dq_zeroed_err_over_max=bad_err, dq_zeroed_rel_l2=bad_rel,
-               launches=counts,
-               k4_raises=k4_raises)
-    log("TRAIN-SMALL", json.dumps(row))
+               launches=counts)
+    log("TRAIN-BF16", json.dumps(row))
     return row
 
 
@@ -2979,8 +3156,8 @@ def _step_groups(prof) -> tuple[dict, list]:
         tot[1] += 1
         if "flash_kernel" in name or "flash_wgmma_kernel" in name:
             groups["K3 forward"] += ms
-        elif any(k in name for k in ("bwd_dot_kernel", "bwd_dkv_kernel",
-                                     "bwd_dq_kernel")):
+        elif any(k in name for k in ("bwd_dot_kernel", "bwd_prep_kernel",
+                                     "bwd_dkv_", "bwd_dq_")):
             groups["K3-bwd"] += ms
         elif any(t in name.lower() for t in ("gemm", "nvjet", "xmma",
                                                 "cutlass")):
@@ -3035,7 +3212,8 @@ def full_width_training(dev) -> dict:
     counts = seen["launches"]
     want = {"flash_attention": 96, "flash_attention_bf16_wgmma": 96,
             "flash_attention_f32_cuda_cores": 0, "flash_attention_bwd": 48,
-            "ssd": 0}
+            "flash_attention_bwd_bf16_wgmma": 48,
+            "flash_attention_bwd_f32_cuda_cores": 0, "ssd": 0}
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"full-width step launches {got}, want {want}")
@@ -3106,11 +3284,169 @@ def full_width_training(dev) -> dict:
     return row
 
 
+#: Phase 14 (c), the six configs whose head dims the previous K3-bwd did
+#: not take, through ``launch.train.main`` with 8-bit moments: name -> (batch
+#: flags, config overrides).  phi-3-vision runs whole; the others at full
+#: width and 2 layers (kimi-k2's experts cut to 8, as phase 12 serves it).
+#: Microbatches of 2 x 4096 tokens, 1 x 4096 where the logits of a
+#: 163,840 / 256,000-row vocabulary would not fit beside the state.
+TRAIN_RUN_ARGV = ["--steps", "3", "--seq-len", "4096", "--seed", "0",
+                  "--log-every", "1", "--opt8"]
+TRAIN_RUNS = {
+    "phi-3-vision-4.2b": (["--global-batch", "4", "--grad-accum", "2"], {}),
+    "kimi-k2-1t-a32b": (["--global-batch", "2", "--grad-accum", "2"],
+                        dict(n_layers=2, n_experts=8)),
+    "starcoder2-7b": (["--global-batch", "4", "--grad-accum", "2"],
+                      dict(n_layers=2)),
+    "command-r-35b": (["--global-batch", "2", "--grad-accum", "2"],
+                      dict(n_layers=2)),
+    "qwen2.5-32b": (["--global-batch", "4", "--grad-accum", "2"],
+                    dict(n_layers=2)),
+    "granite-20b": (["--global-batch", "4", "--grad-accum", "2"],
+                    dict(n_layers=2)),
+}
+
+
+def _train_run(argv: list, over: dict) -> tuple[list, dict]:
+    """``launch.train.main(argv)`` with its config builder wrapped to apply
+    ``over`` -> the losses, and per step the seconds and grad norms, the
+    parameter count, the launches of step 2 (counters zeroed after step 1)
+    and the peak memory."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    seen: dict = {"s": [], "gnorm": []}
+    real_build = train.build
+
+    def build(args):
+        cfg, oc = real_build(args)
+        seen["cfg"] = dataclasses.replace(cfg, **over)
+        return seen["cfg"], oc
+
+    def on_step(step, state, m, seconds):
+        seen["s"].append(seconds)
+        seen["gnorm"].append(float(m["grad_norm"]))
+        if step == 0:
+            seen["params"] = sum(t.numel()
+                                 for t in state["params"].parameters())
+            ops.reset_launches()
+        elif step == 1:
+            seen["launches"] = ops.launch_counts()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        train.build = build
+        losses = train.main(argv, on_step=on_step)
+    finally:
+        train.build = real_build
+    seen["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    return losses, seen
+
+
+def large_head_dim_training(dev) -> dict:
+    """Phase 14 (c), the configs of ``TRAIN_RUNS``: 3 steps each through
+    ``launch.train.main`` (its config builder wrapped to apply the
+    overrides): finite losses and grad norms; in step 2 exactly 2 K3
+    forward launches (the forward and remat's recompute, all tensor-core)
+    and 1 K3-bwd (tensor-core) per layer and microbatch, 0 K4; s/step
+    (step 2 and 3), tokens/s and peak memory."""
+    import numpy as np
+
+    rows = {}
+    for arch, (flags, over) in TRAIN_RUNS.items():
+        argv = ["--arch", arch] + flags + TRAIN_RUN_ARGV
+        losses, seen = _train_run(argv, over)
+        cfg = seen["cfg"]
+        accum = int(flags[flags.index("--grad-accum") + 1])
+        gb = int(flags[flags.index("--global-batch") + 1])
+        per = cfg.n_layers * accum
+        want = {"flash_attention": 2 * per, "flash_attention_bf16_wgmma":
+                2 * per, "flash_attention_f32_cuda_cores": 0,
+                "flash_attention_bwd": per,
+                "flash_attention_bwd_bf16_wgmma": per,
+                "flash_attention_bwd_f32_cuda_cores": 0, "ssd": 0}
+        got = {k: seen["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{arch}: step 2 launches {got}, want {want}")
+        if not (all(np.isfinite(losses)) and all(np.isfinite(seen["gnorm"]))):
+            raise AssertionError(f"{arch}: non-finite loss / grad norm: "
+                                 f"{losses} {seen['gnorm']}")
+        s_step = float(np.median(seen["s"][1:]))
+        rows[arch] = dict(
+            argv=" ".join(argv), overrides=over, n_layers=cfg.n_layers,
+            d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+            head_dim=cfg.head_dim, parallel_block=cfg.parallel_block,
+            params=seen["params"], losses=losses,
+            grad_norms=seen["gnorm"], step_s=seen["s"],
+            s_per_step_median_2_3=s_step, tokens_per_s=gb * 4096 / s_step,
+            peak_memory_gb=seen["peak_gb"], launches_step_2=got)
+        log("TRAIN-CONFIG", json.dumps(rows[arch]))
+    return rows
+
+
+#: Phase 14 (c): the config whose three steps are run again with the plain
+#: attention swapped in, and with f32 moments in place of 8-bit ones, to
+#: tell whose the loss's rise at step 2 is: K3 / K3-bwd's, the 8-bit
+#: moments' or AdamW's first steps'.
+RISE_ARCH = "starcoder2-7b"
+
+
+def loss_rise_runs(kernels_row: dict) -> dict:
+    """Phase 14 (c): ``RISE_ARCH``'s ``TRAIN_RUNS`` argv with the plain
+    versions of K3 / K3-bwd on the card, and with the kernels and f32
+    moments; step 1's loss through the plain versions within
+    ``BF16_LOSS_REL`` of the kernels' (``kernels_row``); the three runs'
+    losses and grad norms side by side."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    from repro_torch.kernels import ref
+
+    flags, over = TRAIN_RUNS[RISE_ARCH]
+    argv = ["--arch", RISE_ARCH] + flags + TRAIN_RUN_ARGV
+    real_fwd = flash_attention.flash_attention_cuda
+    real_bwd = flash_attention_bwd.flash_attention_bwd_cuda
+    try:
+        flash_attention.flash_attention_cuda = ref.flash_attention
+        flash_attention_bwd.flash_attention_bwd_cuda = ref.flash_attention_bwd
+        plain, plain_seen = _train_run(argv, over)
+    finally:
+        flash_attention.flash_attention_cuda = real_fwd
+        flash_attention_bwd.flash_attention_bwd_cuda = real_bwd
+    f32_moments, f32_seen = _train_run([a for a in argv if a != "--opt8"],
+                                       over)
+    rel = abs(plain[0] - kernels_row["losses"][0]) / abs(plain[0])
+    if rel > BF16_LOSS_REL:
+        raise AssertionError(f"{RISE_ARCH}: step 1 loss through the plain "
+                             f"versions {plain[0]} vs the kernels' "
+                             f"{kernels_row['losses'][0]}")
+    row = dict(argv=" ".join(argv),
+               losses={"kernels, 8-bit moments": kernels_row["losses"],
+                       "plain attention, 8-bit moments": plain,
+                       "kernels, f32 moments": f32_moments},
+               grad_norms={"kernels, 8-bit moments": kernels_row[
+                               "grad_norms"],
+                           "plain attention, 8-bit moments":
+                               plain_seen["gnorm"],
+                           "kernels, f32 moments": f32_seen["gnorm"]},
+               step_1_loss_rel_err=rel)
+    log("TRAIN-RISE", json.dumps(row))
+    return row
+
+
 def training_phase(dev) -> dict:
-    """Phase 14: (a) K3-bwd, (b) a small step kernels vs plain, (c) the
-    full-width run and the resume check."""
-    return dict(k3_bwd=check_k3_bwd(dev), small=small_train_step(dev),
-                full=full_width_training(dev))
+    """Phase 14: (a) K3-bwd, (b) small steps kernels vs plain (f32 and
+    bf16), (c) the full-width run, the resume check, the six large-head-dim
+    configs and the loss-rise runs."""
+    rows = dict(k3_bwd=check_k3_bwd(dev), small=small_train_steps(dev),
+                full=full_width_training(dev),
+                configs=large_head_dim_training(dev))
+    rows["rise"] = loss_rise_runs(rows["configs"][RISE_ARCH])
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3402,14 +3738,24 @@ def main() -> int:
     k3_paths = {"hymba-1.5b": serve_counts["flash_attention"],
                 **{r["arch"]: r["k3_launches"] for r in family_rows.values()},
                 f"{TRAIN_ARCH} train step":
-                    full["launches_step_2"]["flash_attention"]}
+                    full["launches_step_2"]["flash_attention"],
+                **{f"{arch} train step": r["launches_step_2"][
+                    "flash_attention"]
+                   for arch, r in training["configs"].items()}}
     k4_paths = {"hymba-1.5b": serve_counts["ssd"],
                 **{r["arch"]: r["k4_launches"] for r in family_rows.values()}}
     k3_tc = serve_counts["flash_attention_bf16_wgmma"] + sum(
         r["k3_tensor_core"] for r in family_rows.values()) + \
-        full["launches_step_2"]["flash_attention_bf16_wgmma"]
+        full["launches_step_2"]["flash_attention_bf16_wgmma"] + sum(
+            r["launches_step_2"]["flash_attention_bf16_wgmma"]
+            for r in training["configs"].values())
     k3b = next(r for r in training["k3_bwd"] if r["dtype"] == "bfloat16"
                and r["shape"] == "granite-moe training")
+    k3b_paths = {f"{TRAIN_ARCH} train step":
+                     full["launches_step_2"]["flash_attention_bwd"],
+                 **{f"{arch} train step": r["launches_step_2"][
+                     "flash_attention_bwd"]
+                    for arch, r in training["configs"].items()}}
 
     # K3's entry is the SWA layer in bf16 (29 of the 32 launches); the
     # global layer's row rides along.
@@ -3507,12 +3853,19 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              replaces="none: K3's gradient; the reference differentiates its "
                       "jnp attention (src/repro/models/attention.py:122)",
-             design="CUDA cores, f32: D = rowsum(dO O), then dK / dV per kv "
-                    "block over the group's q heads, then dQ per q block; "
-                    "no atomics; 3 device launches per call",
-             launches=full["launches_step_2"]["flash_attention_bwd"],
-             launches_by_path={f"{TRAIN_ARCH} train step": full[
-                 "launches_step_2"]["flash_attention_bwd"]},
+             design="bf16: tensor cores (TMA + mbarrier ring + wgmma): an "
+                    "lse / D pre-pass, dK / dV per 128 keys (two consumer "
+                    "warpgroups, a producer warpgroup, setmaxnreg), dQ per "
+                    "128 query rows; f32: CUDA cores; no atomics; 3 device "
+                    "launches per call",
+             launches=sum(k3b_paths.values()), launches_by_path=k3b_paths,
+             launches_by_variant={
+                 "bf16_wgmma": full["launches_step_2"][
+                     "flash_attention_bwd_bf16_wgmma"] + sum(
+                     r["launches_step_2"]["flash_attention_bwd_bf16_wgmma"]
+                     for r in training["configs"].values()),
+                 "f32_cuda_cores": full["launches_step_2"][
+                     "flash_attention_bwd_f32_cuda_cores"]},
              max_abs_err=k3b["max_abs_err"], rel_l2={
                  g: e["rel_l2"] for g, e in k3b["errors"].items()},
              ms=k3b["ms"], plain_ms=k3b["plain_ms"], bound_ms=k3b["bound_ms"],
@@ -3521,8 +3874,9 @@ def main() -> int:
                           "forward",
              shape=k3b["dims"],
              shapes={f"{r['shape']}/{r['dtype']}": {key: r[key] for key in (
-                 "dims", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "max_abs_err")} for r in training["k3_bwd"]}),
+                 "dims", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms", "max_abs_err")}
+                 for r in training["k3_bwd"]}),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -16,8 +16,9 @@ of every kernel instance at every shape, with no card and no ``nvcc``:
 * K3 ``flash_attention.cu``: f32 ``smem_floats<DH>()``, bf16
   ``TcLayout<DH>::kSmem``;
 * K4 ``ssd.cu``: ``state_smem`` / ``scan_smem`` and the state pass;
-* K3-bwd ``flash_attention_bwd.cu``: the D pass, then ``dkv_smem_floats`` /
-  ``dq_smem_floats``.
+* K3-bwd ``flash_attention_bwd.cu``: f32, the D pass, then
+  ``dkv_smem_floats`` / ``dq_smem_floats``; bf16, the lse / D pre-pass,
+  then ``BwdLayout<DH>::kDkvSmem`` / ``kDqSmem``.
 
 Each library also exports a plan query that returns the launches its own
 host code would make (``csrc/budget.cuh``).  On a card the pass holds the
@@ -70,7 +71,7 @@ LIBRARIES = ("kernel_matrix", "solver", "flash_attention", "ssd",
 SOURCE = {lib: f"{CSRC}/{lib}.cu" for lib in LIBRARIES}
 #: Ints per launch in a plan query's output, launches per call at most.
 PLAN_INTS = 8
-MAX_LAUNCHES = 3
+MAX_LAUNCHES = 4
 ATTR_INTS = 10
 
 
@@ -277,13 +278,34 @@ def k4_plan(b: int, s: int, nh: int, g: int, dh: int, ds: int, chunk: int,
 # ---------------------------------------------------------------------------
 
 K3B_BLOCK_Q, K3B_BLOCK_K, K3B_THREADS = 64, 64, 256
-K3B_HEAD_DIMS = (32, 64)
-K3B_TYPES = {0: "float", 1: "__nv_bfloat16"}
+K3B_HEAD_DIMS = (32, 64, 96, 112, 128)
+#: The bf16 tensor-core kernels: dK / dV CTAs of two consumer warpgroups
+#: and a producer warpgroup, dQ CTAs of two and a producer warp; the ring's
+#: stages; a q block's lse / D floats.
+K3B_TC_CONSUMERS, K3B_DKV_THREADS, K3B_DQ_THREADS = 256, 384, 288
+K3B_TC_STAGES, K3B_LD_FLOATS = 2, 128
+#: dK / dV CTAs wanted before a bf16 group's q heads are split over grid.z.
+K3B_FILL_CTAS = 264
 
 
-def k3b_smem(dh: int) -> tuple[int, int]:
+def k3b_per_split(b: int, hkv: int, group: int, skv: int) -> int:
+    """q heads per grid.z split of the bf16 dK / dV launch
+    (``dkv_per_split``)."""
+    ctas = b * hkv * _cdiv(skv, 2 * K3B_BLOCK_K)
+    want = 1 if ctas >= K3B_FILL_CTAS else min(group,
+                                               _cdiv(K3B_FILL_CTAS, ctas))
+    return _cdiv(group, want)
+
+
+def k3b_smem(dh: int, dtype: int = 0) -> tuple[int, int]:
     """Dynamic shared memory of the dK / dV and the dQ launch at head dim
-    ``dh`` (``dkv_smem_floats`` / ``dq_smem_floats``)."""
+    ``dh``: f32 (0) ``dkv_smem_floats`` / ``dq_smem_floats``, bf16 (1)
+    ``BwdLayout<DH>::kDkvSmem`` / ``kDqSmem``."""
+    if dtype == 1:
+        tile = K3B_BLOCK_Q * dh * 2
+        return (1024 + 4 * tile
+                + K3B_TC_STAGES * (2 * tile + 4 * K3B_LD_FLOATS) + 64,
+                1024 + 4 * tile + K3B_TC_STAGES * 2 * tile + 64)
     tiles = 4 * K3B_BLOCK_Q * (dh + 1) + 2 * K3B_BLOCK_Q
     ld_p = K3B_BLOCK_K + 1
     return 4 * (tiles + 2 * K3B_BLOCK_K * ld_p), 4 * (tiles + K3B_BLOCK_Q * ld_p)
@@ -292,23 +314,43 @@ def k3b_smem(dh: int) -> tuple[int, int]:
 def k3b_plan(dtype: int, b: int, hq: int, hkv: int, sq: int, skv: int,
              dh: int) -> list[Launch]:
     """K3-bwd's launches for q (b, hq, sq, dh) against k, v (b, hkv, skv,
-    dh): D, dK / dV, dQ; ``dtype`` 0 = f32, 1 = bf16."""
+    dh): D (f32) or the lse / D pre-pass (bf16), dK / dV, dQ, and in bf16
+    the splits' sum when the group is split over grid.z; ``dtype`` 0 = f32,
+    1 = bf16."""
     if b <= 0 or hq <= 0 or sq <= 0:
         return []
     if hkv <= 0 or hq % hkv or skv <= 0 or b * hq > 65535 \
-            or dtype not in K3B_TYPES or dh not in K3B_HEAD_DIMS:
+            or dtype not in (0, 1) or dh not in K3B_HEAD_DIMS:
         raise ValueError(f"K3-bwd takes no dtype {dtype}, heads {hq} / "
                          f"{hkv}, dh {dh}")
-    t = K3B_TYPES[dtype]
     blk = (K3B_THREADS, 1, 1)
-    dkv, dq = k3b_smem(dh)
-    return [
-        Launch(f"bwd_dot_kernel<{t}>",
-               (_cdiv(b * hq * sq, K3B_THREADS // WARP), 1, 1), blk, 0),
-        Launch(f"bwd_dkv_kernel<{t}, {dh}>",
-               (_cdiv(skv, K3B_BLOCK_K), b * hkv, 1), blk, dkv),
-        Launch(f"bwd_dq_kernel<{t}, {dh}>",
-               (_cdiv(sq, K3B_BLOCK_Q), b * hq, 1), blk, dq)]
+    dkv, dq = k3b_smem(dh, dtype)
+    rows_per_cta = K3B_THREADS // WARP
+    if dtype == 0:
+        return [
+            Launch("bwd_dot_kernel",
+                   (_cdiv(b * hq * sq, rows_per_cta), 1, 1), blk, 0),
+            Launch(f"bwd_dkv_kernel<{dh}>",
+                   (_cdiv(skv, K3B_BLOCK_K), b * hkv, 1), blk, dkv),
+            Launch(f"bwd_dq_kernel<{dh}>",
+                   (_cdiv(sq, K3B_BLOCK_Q), b * hq, 1), blk, dq)]
+    rows_pad = b * hq * _cdiv(sq, K3B_BLOCK_Q) * K3B_BLOCK_Q
+    group = hq // hkv
+    splits = _cdiv(group, k3b_per_split(b, hkv, group, skv))
+    out = [
+        Launch("bwd_prep_kernel", (_cdiv(rows_pad, rows_per_cta), 1, 1), blk,
+               0),
+        Launch(f"bwd_dkv_wgmma_kernel<{dh}>",
+               (b * hkv, _cdiv(skv, 2 * K3B_BLOCK_K), splits),
+               (K3B_DKV_THREADS, 1, 1), dkv),
+        Launch(f"bwd_dq_wgmma_kernel<{dh}>",
+               (b * hq, _cdiv(sq, 2 * K3B_BLOCK_Q), 1),
+               (K3B_DQ_THREADS, 1, 1), dq)]
+    if splits > 1:
+        out.append(Launch("bwd_dkv_sum_kernel",
+                          (_cdiv(b * hkv * skv * dh // 2, K3B_THREADS), 1, 1),
+                          blk, 0))
+    return out
 
 
 def mirror_plan(library: str, args: tuple, sm_count: int = H100_SMS,
@@ -478,14 +520,33 @@ def grid_covers(library: str, args: tuple, launches: list[Launch]
             bad.append(f"grid {ln.grid} does not cover {b * hq} heads x "
                        f"{sq} query rows")
     elif library == "flash_attention_bwd":
-        _, b, hq, hkv, sq, skv, _ = args
-        dot, dkv, dq = launches
-        if dot.grid[0] * (K3B_THREADS // WARP) < b * hq * sq:
-            bad.append(f"D grid {dot.grid} does not cover {b * hq * sq} rows")
-        if dkv.grid[0] * K3B_BLOCK_K < skv or dkv.grid[1] != b * hkv:
+        dtype, b, hq, hkv, sq, skv, dh = args
+        pre, dkv, dq, *rest = launches
+        rows = b * hq * (sq if dtype == 0
+                         else _cdiv(sq, K3B_BLOCK_Q) * K3B_BLOCK_Q)
+        if pre.grid[0] * (K3B_THREADS // WARP) < rows:
+            bad.append(f"D grid {pre.grid} does not cover {rows} rows")
+        if dtype == 0:
+            (keys, kv_heads), (q_rows, q_heads) = (
+                (dkv.grid[0] * K3B_BLOCK_K, dkv.grid[1]),
+                (dq.grid[0] * K3B_BLOCK_Q, dq.grid[1]))
+        else:
+            (keys, kv_heads), (q_rows, q_heads) = (
+                (dkv.grid[1] * 2 * K3B_BLOCK_K, dkv.grid[0]),
+                (dq.grid[1] * 2 * K3B_BLOCK_Q, dq.grid[0]))
+            splits = dkv.grid[2]
+            if splits * k3b_per_split(b, hkv, hq // hkv, skv) < hq // hkv \
+                    or bool(rest) != (splits > 1):
+                bad.append(f"dK / dV splits {splits} do not cover the "
+                           f"{hq // hkv} q heads of a group")
+            for ln in rest:
+                if ln.grid[0] * K3B_THREADS * 2 < b * hkv * skv * dh:
+                    bad.append(f"sum grid {ln.grid} does not cover "
+                               f"{b * hkv * skv * dh} values")
+        if keys < skv or kv_heads != b * hkv:
             bad.append(f"dK / dV grid {dkv.grid} does not cover {b * hkv} "
                        f"kv heads x {skv} keys")
-        if dq.grid[0] * K3B_BLOCK_Q < sq or dq.grid[1] != b * hq:
+        if q_rows < sq or q_heads != b * hq:
             bad.append(f"dQ grid {dq.grid} does not cover {b * hq} heads x "
                        f"{sq} query rows")
     elif library == "ssd":
@@ -629,7 +690,8 @@ def fused_vs_oracle(cfg: dict, oracle_bytes: Optional[int] = None,
 #: arguments): the deployed banks and the padded training set (K1), the
 #: Table II and har12 CV lanes in every mode (K2), each served prefill's
 #: attention in both dtypes (K3), hymba's and mamba2's scans (K4), and
-#: granite-moe's training attention forward and backward (K3, K3-bwd).
+#: the training attention forward and backward (K3, K3-bwd) of granite-moe
+#: and K3-bwd at every large-head-dim config's training microbatch.
 MAIN_PATH_CALLS = (
     ("kernel_matrix", "balance rbf bank", (3, 188, 71, 4, 1)),
     ("kernel_matrix", "har12 rbf bank", (66, 1875, 675, 5, 1)),
@@ -660,6 +722,20 @@ MAIN_PATH_CALLS = (
      (0, 2, 16, 8, 4096, 4096, 64)),
     ("flash_attention_bwd", "whisper encoder bf16",
      (1, 2, 16, 16, 1500, 1500, 64)),
+    ("flash_attention", "phi-3-vision training bf16 (lse)",
+     (2, 2, 32, 32, 4096, 4096, 96)),
+    ("flash_attention_bwd", "phi-3-vision training bf16",
+     (1, 2, 32, 32, 4096, 4096, 96)),
+    ("flash_attention_bwd", "kimi-k2 training bf16",
+     (1, 1, 64, 8, 4096, 4096, 112)),
+    ("flash_attention_bwd", "starcoder2 training bf16",
+     (1, 2, 36, 4, 4096, 4096, 128)),
+    ("flash_attention_bwd", "command-r training bf16",
+     (1, 1, 64, 8, 4096, 4096, 128)),
+    ("flash_attention_bwd", "qwen2.5-32b training bf16",
+     (1, 2, 40, 8, 4096, 4096, 128)),
+    ("flash_attention_bwd", "granite-20b training bf16 (MQA)",
+     (1, 2, 48, 1, 4096, 4096, 128)),
 )
 
 

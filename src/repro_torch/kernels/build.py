@@ -34,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES = {"kernel_matrix": "kernel_matrix.cu", "solver": "solver.cu",
            "flash_attention": "flash_attention.cu", "ssd": "ssd.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu"}
-HEADERS = ("tiles.cuh", "budget.cuh")
+HEADERS = ("tiles.cuh", "budget.cuh", "hopper.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -146,10 +146,18 @@ _SIGNATURES = {
 }
 
 
+#: Further C functions of a library: (symbol, argument types, result).
+_EXTRAS = {
+    "flash_attention_bwd": (("k3b_scratch_floats", [_I] * 7,
+                             ctypes.c_int64),),
+}
+
+
 def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     prefix, fn_name, argtypes, n_plan_args = _SIGNATURES[name]
     int_p = ctypes.POINTER(_I)
     for sym, args, res in (
+            *_EXTRAS.get(name, ()),
             (fn_name, argtypes, _I),
             (f"{prefix}_error_string", [_I], ctypes.c_char_p),
             (f"{prefix}_plan", [_I] * n_plan_args + [int_p, int_p], _I),

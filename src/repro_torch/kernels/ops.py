@@ -23,7 +23,8 @@ from repro_torch.kernels import rbf, ref, solver
 from repro_torch.kernels import ssd as _ssd
 
 COUNTERS = (rbf.LAUNCHES, solver.LAUNCHES, _flash.LAUNCHES, _flash.LAUNCHES_TC,
-            _flash.LAUNCHES_F32, _ssd.LAUNCHES, _flash_bwd.LAUNCHES)
+            _flash.LAUNCHES_F32, _ssd.LAUNCHES, _flash_bwd.LAUNCHES,
+            _flash_bwd.LAUNCHES_TC, _flash_bwd.LAUNCHES_F32)
 
 
 def reset_launches() -> None:

@@ -38,6 +38,7 @@ class AdamWConfig:
 
 
 _LOG_TINY = -36.0  # log(~2e-16): magnitudes below this quantize to exact 0
+_HI_FLOOR = _LOG_TINY + 1e-3  # a block's least ``hi`` (an all-zero block's)
 
 
 @dataclasses.dataclass
@@ -63,12 +64,22 @@ class Quant8:
         flat = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, block)
         mag = flat.abs()
         logm = torch.where(mag > 0, torch.log(mag), _LOG_TINY)
-        hi = torch.clamp(logm.amax(dim=1, keepdim=True),
-                         min=_LOG_TINY + 1e-3)
+        hi = torch.clamp(logm.amax(dim=1, keepdim=True), min=_HI_FLOOR)
         code = torch.round(127.0 * (logm - _LOG_TINY) / (hi - _LOG_TINY))
         code = torch.clamp(code, 0, 127) * torch.sign(flat)
         return cls(q=code.to(torch.int8), hi=hi.float(),
                    shape=tuple(x.shape))
+
+    @classmethod
+    def zeros(cls, shape: tuple, block: int, device) -> "Quant8":
+        """``encode`` of zeros of ``shape``: every code 0, every block's
+        ``hi`` at its floor, with no f32 temporary the size of the leaf."""
+        blocks = -(-math.prod(shape) // block)
+        return cls(q=torch.zeros((blocks, block), dtype=torch.int8,
+                                 device=device),
+                   hi=torch.full((blocks, 1), _HI_FLOOR, dtype=torch.float32,
+                                 device=device),
+                   shape=tuple(shape))
 
     def decode(self) -> torch.Tensor:
         code = self.q.float()
@@ -93,8 +104,9 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def _zeros_state(cfg: AdamWConfig, p: torch.Tensor):
-    z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return Quant8.encode(z, cfg.block) if cfg.quantize_state else z
+    if cfg.quantize_state:
+        return Quant8.zeros(p.shape, cfg.block, p.device)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
 def init_state(cfg: AdamWConfig, params: list[torch.Tensor]) -> dict:
@@ -115,23 +127,53 @@ def step_scalars(cfg: AdamWConfig, step: torch.Tensor):
             1.0 - torch.pow(cfg.b2, sf))
 
 
+#: Entries of a leaf updated at once.  The update holds a few f32
+#: temporaries per entry (~20 bytes); a leaf of a billion entries (an
+#: embedding, or 32 stacked MLP weights) updated whole needs ~20 GB beside
+#: the state, so leaves are walked in chunks of about this many entries, a
+#: whole number of ``Quant8`` blocks, so the codes are the whole leaf's.
+UPDATE_CHUNK = 1 << 24
+
+
 def update_leaf(cfg: AdamWConfig, p: torch.Tensor, g: torch.Tensor, m, v,
                 lr: torch.Tensor, bc1: torch.Tensor, bc2: torch.Tensor):
     """One leaf's AdamW step -> ``(new_p, new_m, new_v)``; ``m`` and ``v``
-    f32 tensors or ``Quant8`` (re-encoded on the way out)."""
-    gf = g.float()
-    m_f = m.decode() if isinstance(m, Quant8) else m
-    v_f = v.decode() if isinstance(v, Quant8) else v
-    m_f = cfg.b1 * m_f + (1 - cfg.b1) * gf
-    v_f = cfg.b2 * v_f + (1 - cfg.b2) * gf * gf
-    update = (m_f / bc1) / (torch.sqrt(v_f / bc2) + cfg.eps)
+    f32 tensors or ``Quant8`` (re-encoded on the way out), updated
+    ``UPDATE_CHUNK`` entries at a time."""
     decay = cfg.weight_decay if p.ndim >= 2 else 0.0
-    pf = p.float()
-    new_p = pf - lr * (update + decay * pf)
-    if isinstance(m, Quant8):
-        m_f = Quant8.encode(m_f, cfg.block)
-        v_f = Quant8.encode(v_f, cfg.block)
-    return new_p.to(p.dtype), m_f, v_f
+    quant = isinstance(m, Quant8)
+    n = p.numel()
+    rows = max(1, UPDATE_CHUNK // cfg.block)     # Quant8 blocks per chunk
+    chunk = rows * cfg.block
+    new_p = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+    flat_p, flat_g, out_p = p.reshape(-1), g.reshape(-1), new_p.view(-1)
+    if quant:
+        new_m = Quant8(torch.empty_like(m.q), torch.empty_like(m.hi), m.shape)
+        new_v = Quant8(torch.empty_like(v.q), torch.empty_like(v.hi), v.shape)
+    else:
+        new_m = torch.empty(m.shape, dtype=m.dtype, device=m.device)
+        new_v = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    for i, s in enumerate(range(0, n, chunk)):
+        e = min(n, s + chunk)
+        r = slice(i * rows, (i + 1) * rows)
+        if quant:
+            m_f = Quant8(m.q[r], m.hi[r], (e - s,)).decode()
+            v_f = Quant8(v.q[r], v.hi[r], (e - s,)).decode()
+        else:
+            m_f, v_f = m.reshape(-1)[s:e], v.reshape(-1)[s:e]
+        gf = flat_g[s:e].float()
+        m_f = cfg.b1 * m_f + (1 - cfg.b1) * gf
+        v_f = cfg.b2 * v_f + (1 - cfg.b2) * gf * gf
+        update = (m_f / bc1) / (torch.sqrt(v_f / bc2) + cfg.eps)
+        pf = flat_p[s:e].float()
+        out_p[s:e] = pf - lr * (update + decay * pf)
+        if quant:
+            for src, dst in ((m_f, new_m), (v_f, new_v)):
+                code = Quant8.encode(src, cfg.block)
+                dst.q[r], dst.hi[r] = code.q, code.hi
+        else:
+            new_m.view(-1)[s:e], new_v.view(-1)[s:e] = m_f, v_f
+    return new_p, new_m, new_v
 
 
 def apply_updates(cfg: AdamWConfig, params: list[torch.Tensor],

@@ -452,6 +452,51 @@ def test_mirror_k3_dynamic_shared_memory(dtype, dh, want):
     assert launch.smem == want
 
 
+@pytest.mark.parametrize("dtype,dh,dkv,dq", [
+    (0, 32, 67_584, 50_944), (0, 64, 100_352, 83_712),
+    (0, 128, 165_888, 149_248),
+    (1, 32, 34_880, 33_856), (1, 64, 67_648, 66_624),
+    (1, 96, 100_416, 99_392), (1, 112, 116_800, 115_776),
+    (1, 128, 133_184, 132_160)])
+def test_mirror_k3b_dynamic_shared_memory_at_every_head_dim(dtype, dh, dkv,
+                                                            dq):
+    """K3-bwd's dK / dV and dQ shared memory: f32 four padded f32 tiles
+    and the P / dS tiles; bf16 four 64-row bf16 tiles of k, v (q, dO) and
+    two ring stages, 1,024 B of alignment slack and the barriers."""
+    pre, dkv_l, dq_l = kernel_budget.k3b_plan(dtype, 2, 16, 8, 4096, 4096,
+                                              dh)
+    assert (dkv_l.smem, dq_l.smem) == (dkv, dq)
+    assert pre.smem == 0 and max(dkv, dq) <= kernel_budget.H100_SMEM_OPTIN
+    if dtype == 1:
+        assert pre.kernel == "bwd_prep_kernel"
+        assert dkv_l.kernel == f"bwd_dkv_wgmma_kernel<{dh}>"
+        assert (dkv_l.block, dq_l.block) == ((384, 1, 1), (288, 1, 1))
+        assert (dkv_l.grid, dq_l.grid) == ((16, 32, 1), (32, 32, 1))
+    else:
+        assert dkv_l.kernel == f"bwd_dkv_kernel<{dh}>"
+
+
+@pytest.mark.parametrize("args,splits", [
+    ((1, 2, 16, 8, 4096, 4096, 64), 1),       # granite-moe: 512 CTAs
+    ((1, 2, 36, 4, 4096, 4096, 128), 2),      # starcoder2: 256 -> 512
+    ((1, 2, 48, 1, 4096, 4096, 128), 5),      # granite-20b MQA: 64 -> 320
+    ((1, 1, 5, 1, 400, 400, 64), 5),          # a small MQA case: 1 head each
+    ((0, 2, 48, 1, 4096, 4096, 128), 1)])     # f32 is never split
+def test_mirror_k3b_splits_a_group_that_would_not_fill_the_card(args,
+                                                                splits):
+    """bf16 dK / dV CTAs below two waves of the card split the group's q
+    heads over grid.z, and a fourth launch sums the splits."""
+    launches = kernel_budget.k3b_plan(*args)
+    assert launches[1].grid[2] == splits
+    assert len(launches) == (4 if splits > 1 else 3)
+    if splits > 1:
+        assert launches[3].kernel == "bwd_dkv_sum_kernel"
+    assert kernel_budget.grid_covers("flash_attention_bwd", args,
+                                     launches) == []
+    assert kernel_budget.grid_covers("flash_attention_bwd", args,
+                                     launches[:3]) != [] or splits == 1
+
+
 @pytest.mark.parametrize("nh,ds,state,scan", [
     (50, 16, 41_504, 89_088),      # hymba (dh 64, ds 16, chunk 128)
     (80, 128, 98_848, 199_680)])   # mamba2 (ds 128)
@@ -631,7 +676,13 @@ MIRROR_CONSTANTS = {
             "K4_STRIP_LD": "kStripLd"},
     "flash_attention_bwd": {"K3B_BLOCK_Q": "kBlockQ",
                             "K3B_BLOCK_K": "kBlockK",
-                            "K3B_THREADS": "kThreads"},
+                            "K3B_THREADS": "kThreads",
+                            "K3B_TC_CONSUMERS": "kTcConsumers",
+                            "K3B_DKV_THREADS": "kDkvThreads",
+                            "K3B_DQ_THREADS": "kDqThreads",
+                            "K3B_TC_STAGES": "kTcStages",
+                            "K3B_LD_FLOATS": "kLdFloats",
+                            "K3B_FILL_CTAS": "kFillCtas"},
 }
 
 

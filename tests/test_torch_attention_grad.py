@@ -3,9 +3,9 @@
 ``jax.vjp`` of the reference's attention oracle
 (``repro.kernels.ref.attention``), within 1e-5 in f32.
 
-Cases: causal, sliding window, GQA, non-causal with sq != skv (whisper's
-cross-attention), a ragged last kv block, q_offset > 0 and head dims 32 /
-64.  Also: the forward's lse against ``logsumexp`` of the logits, the
+Cases: causal, sliding window, GQA, MQA, non-causal with sq != skv
+(whisper's cross-attention), a ragged last kv block, q_offset > 0 and every
+head dim the kernel takes (32, 64, 96, 112, 128).  Also: the forward's lse against ``logsumexp`` of the logits, the
 Function's forward bit-equal to the no-grad ``ops.flash_attention``, the
 gradient through remat's recompute, and zero gradients for rows that see
 no key.  The card's kernel is held to the same twin in
@@ -31,6 +31,10 @@ CASES = {
     "noncausal_ragged_self": (1, 4, 2, 100, 100, 64, False, None, 0),
     "q_offset": (2, 4, 2, 20, 130, 32, True, None, 110),
     "q_offset_window": (1, 4, 2, 33, 200, 64, True, 50, 167),
+    "mqa_dh128": (1, 6, 1, 70, 70, 128, True, None, 0),
+    "window_dh96": (1, 4, 2, 90, 90, 96, True, 30, 0),
+    "q_offset_dh112": (1, 4, 2, 20, 100, 112, True, None, 80),
+    "cross_dh128": (1, 2, 2, 24, 70, 128, False, None, 0),
 }
 
 
@@ -165,10 +169,10 @@ def test_bf16_twin_returns_the_input_dtype():
 
 
 def test_backward_kernel_wrapper_refuses_what_it_does_not_take():
-    q = torch.zeros(1, 2, 64, 96)
-    kv = torch.zeros(1, 1, 64, 96)
+    q = torch.zeros(1, 2, 64, 80)
+    kv = torch.zeros(1, 1, 64, 80)
     lse = torch.zeros(1, 2, 64)
-    with pytest.raises(ValueError, match="96"):
+    with pytest.raises(ValueError, match="80"):
         flash_attention_bwd.flash_attention_bwd_cuda(q, kv, kv, q, lse, q)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd.flash_attention_bwd_cuda(

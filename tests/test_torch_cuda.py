@@ -10,7 +10,8 @@ only the port is installed.  Tolerances are those of
 tests/test_torch_kernels.py (K1: atol max(5e-6, 2e-6 gamma), rtol 1e-5;
 K2) and tests/test_torch_lm_kernels.py (K3: 2e-5 in f32, 2e-2 in bf16, at
 every head dim the configs use, 32 to 128; K4 and each of its passes: atol
-1e-4, at state widths up to 128).  K3-bwd against its plain twin: f32 max
+1e-4, at state widths up to 128).  K3-bwd against its plain twin at
+every head dim 32 to 128 and mask kind: f32 max
 |err| <= 1e-4 * max(1, max|plain|), bf16 relative L2 <= 2^-7 against the
 twin run in f32 on the same bf16 inputs, lse within 1e-5 of the logits'
 logsumexp; a train step on the card against the same step with the plain
@@ -868,7 +869,9 @@ BUDGET_THREADS = {"kernel_matrix_kernel": 256, "solver_kernel": 1024,
                   "flash_kernel": 256, "flash_wgmma_kernel": 288,
                   "ssd_chunk_state_kernel": 256, "ssd_state_pass_kernel": 256,
                   "ssd_chunk_scan_kernel": 256, "bwd_dot_kernel": 256,
-                  "bwd_dkv_kernel": 256, "bwd_dq_kernel": 256}
+                  "bwd_prep_kernel": 256, "bwd_dkv_kernel": 256,
+                  "bwd_dq_kernel": 256, "bwd_dkv_wgmma_kernel": 384,
+                  "bwd_dq_wgmma_kernel": 288, "bwd_dkv_sum_kernel": 256}
 
 
 @pytest.mark.cuda
@@ -958,18 +961,19 @@ def test_analysis_gate_on_the_card(card):
 # K3-bwd and the training path
 # ---------------------------------------------------------------------------
 
-#: (b, hq, hkv, sq, skv, dh, causal, window, q_offset)
+#: Mask kinds: (b, hq, hkv, sq, skv, causal, window, q_offset); each runs
+#: at every head dim.  "window" is MQA (one kv head).
 K3B_CASES = {
-    "causal_gqa": (2, 4, 2, 300, 300, 64, True, None, 0),
-    "window": (1, 5, 1, 400, 400, 64, True, 96, 0),
-    "noncausal_ragged": (1, 4, 4, 150, 150, 32, False, None, 0),
-    "cross": (2, 4, 2, 40, 230, 64, False, None, 0),
-    "q_offset": (1, 4, 2, 70, 333, 32, True, 100, 263),
+    "causal_gqa": (2, 4, 2, 300, 300, True, None, 0),
+    "window": (1, 5, 1, 400, 400, True, 96, 0),
+    "noncausal_ragged": (1, 4, 4, 150, 150, False, None, 0),
+    "cross": (2, 4, 2, 40, 230, False, None, 0),
+    "q_offset": (1, 4, 2, 70, 333, True, 100, 263),
 }
 
 
-def _k3b_inputs(case, dtype, dev, seed=0):
-    b, hq, hkv, sq, skv, dh = K3B_CASES[case][:6]
+def _k3b_inputs(case, dtype, dev, dh, seed=0):
+    b, hq, hkv, sq, skv = K3B_CASES[case][:5]
     q, k, v = _qkv(seed, b, hq, hkv, sq, skv, dh, dtype, dev)
     do = torch.as_tensor(np.random.RandomState(seed + 1).randn(b, hq, sq, dh),
                          dtype=torch.float32).to(device=dev, dtype=dtype)
@@ -981,15 +985,43 @@ def _rel_l2(got, want):
                  / torch.linalg.norm(want.float().reshape(-1)))
 
 
+def _logsumexp(q, k, causal, window, q_offset):
+    """``torch.logsumexp`` of the masked f32 logits, per (b, q head)."""
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, sq, dh) / float(dh) ** 0.5
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    mask = ref._attn_mask(sq, 0, skv, causal, window, q_offset, q.device)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.logsumexp(logits, dim=-1).reshape(b, hq, sq)
+
+
+def _k3b_ok(dtype, got, want):
+    """The stated tolerance: f32 max |err| <= 1e-4 max(1, max |plain|),
+    bf16 relative L2 <= 2^-7."""
+    if dtype == torch.float32:
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        return float((got - want).abs().max()) <= tol
+    return _rel_l2(got, want) <= 2 ** -7
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", flash_attention_bwd.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", list(K3B_CASES))
-def test_k3_bwd_kernel_matches_its_plain_twin(card, case, dtype):
-    causal, window, q_offset = K3B_CASES[case][6:]
-    q, k, v, do = _k3b_inputs(case, dtype, card)
+def test_k3_bwd_kernel_matches_its_plain_twin(card, case, dtype, dh):
+    """Each dtype's kernels (bf16: tensor cores, f32: CUDA cores) against
+    the plain twin run in f32 on the same inputs, twice bit for bit; the
+    forward's lse (its lse-storing instance in bf16) against
+    ``torch.logsumexp``."""
+    causal, window, q_offset = K3B_CASES[case][5:]
+    q, k, v, do = _k3b_inputs(case, dtype, card, dh)
     o, lse = flash_attention.flash_attention_cuda(q, k, v, causal, window,
                                                   q_offset, return_lse=True)
     before = flash_attention_bwd.LAUNCHES.count
+    variant = (flash_attention_bwd.LAUNCHES_TC if dtype == torch.bfloat16
+               else flash_attention_bwd.LAUNCHES_F32)
+    before_variant = variant.count
     got = flash_attention_bwd.flash_attention_bwd_cuda(
         q, k, v, o, lse, do, causal, window, q_offset)
     again = flash_attention_bwd.flash_attention_bwd_cuda(
@@ -999,39 +1031,64 @@ def test_k3_bwd_kernel_matches_its_plain_twin(card, case, dtype):
                                    q_offset)
     torch.cuda.synchronize()
     assert flash_attention_bwd.LAUNCHES.count == before + 2
+    assert variant.count == before_variant + 2
     for g, g2, w in zip(got, again, want):
         assert g.dtype == dtype and torch.equal(g, g2)
-        if dtype == torch.float32:
-            tol = 1e-4 * max(1.0, float(w.abs().max()))
-            assert float((g - w).abs().max()) <= tol
-        else:
-            assert _rel_l2(g, w) <= 2 ** -7
-    _, lse_plain = ref.flash_attention(*f32[:3], causal, window, q_offset,
-                                       return_lse=True)
-    assert float((lse - lse_plain).abs().max()) <= 1e-5
+        assert _k3b_ok(dtype, g, w)
+    lse_want = _logsumexp(q, k, causal, window, q_offset)
+    seen = torch.isfinite(lse_want)
+    assert torch.equal(torch.isfinite(lse), seen)
+    assert float((lse - lse_want)[seen].abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda
-def test_k3_bwd_planted_fault_fails_the_check(card):
+@pytest.mark.parametrize("dh", flash_attention_bwd.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_bwd_planted_fault_fails_the_check(card, dtype, dh):
     """Negative control: every q block dropping its last visible kv block
-    fails the f32 check the kernel passes."""
-    q, k, v, do = _k3b_inputs("causal_gqa", torch.float32, card)
+    fails, in each gradient, the check the kernel passes."""
+    q, k, v, do = _k3b_inputs("causal_gqa", dtype, card, dh)
     o, lse = flash_attention.flash_attention_cuda(q, k, v, return_lse=True)
     bad = flash_attention_bwd.flash_attention_bwd_cuda(
         q, k, v, o, lse, do, fault=flash_attention_bwd.FAULT_DROP_LAST_KV_BLOCK)
-    want = ref.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(), o.float(),
+                                   lse, do.float())
     torch.cuda.synchronize()
     for g, w in zip(bad, want):
-        assert float((g - w).abs().max()) > 1e-4 * max(
-            1.0, float(w.abs().max()))
+        assert not _k3b_ok(dtype, g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", flash_attention_bwd.HEAD_DIMS)
+def test_k3_bwd_function_runs_the_tensor_core_kernel_in_bf16(card, dh):
+    """``ops.flash_attention`` on bf16 card tensors that need a gradient:
+    one lse-storing forward and one tensor-core K3-bwd call, its gradients
+    those of the kernel called directly."""
+    q, k, v, do = _k3b_inputs("causal_gqa", torch.bfloat16, card, dh, seed=7)
+    tq, tk, tv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ops.reset_launches()
+    ops.flash_attention(tq, tk, tv).backward(do)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bf16_wgmma"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    assert counts["flash_attention_bwd_bf16_wgmma"] == 1
+    assert counts["flash_attention_bwd_f32_cuda_cores"] == 0
+    o, lse = flash_attention.flash_attention_cuda(q, k, v, return_lse=True)
+    want = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    for g, w in zip((tq.grad, tk.grad, tv.grad), want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
 def test_k3_bwd_refuses_other_head_dims(card):
-    q, k, v, do = _qkv(1, 1, 2, 1, 64, 64, 96, torch.bfloat16, card) + [None]
-    o, lse = flash_attention.flash_attention_cuda(q, k, v, return_lse=True)
-    with pytest.raises(ValueError, match="96"):
-        flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, o, lse, o)
+    q, k, v, do = _qkv(1, 1, 2, 1, 64, 64, 80, torch.bfloat16, card) + [None]
+    lse = torch.zeros(1, 2, 64, device=card)
+    with pytest.raises(ValueError, match="80"):
+        flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, q, lse, q)
+    q16 = q.to(torch.float16)
+    with pytest.raises(TypeError, match="float16"):
+        flash_attention_bwd.flash_attention_bwd_cuda(q16, q16, q16, q16, lse,
+                                                     q16)
 
 
 def _plain_kernels(monkeypatch):

@@ -219,7 +219,9 @@ def test_cpu_tensors_run_the_plain_versions_uncounted():
     assert ops.launch_counts() == {
         "kernel_matrix": 0, "solver": 0, "flash_attention": 0,
         "flash_attention_bf16_wgmma": 0, "flash_attention_f32_cuda_cores": 0,
-        "ssd": 0, "flash_attention_bwd": 0}
+        "ssd": 0, "flash_attention_bwd": 0,
+        "flash_attention_bwd_bf16_wgmma": 0,
+        "flash_attention_bwd_f32_cuda_cores": 0}
 
 
 def test_other_devices_and_cpu_tensors_never_reach_a_kernel():

@@ -92,6 +92,47 @@ def test_apply_updates_matches_the_reference_over_three_steps(quantize):
                                        else 1e-6)
 
 
+@pytest.mark.parametrize("shape", [(300,), (17, 33), (256,), (2, 5, 70)])
+def test_zero_moments_are_the_codes_of_zeros(shape):
+    """The 8-bit zero state (``Quant8.zeros``, built without encoding)
+    equals ``Quant8.encode`` of a zero leaf bit for bit."""
+    oc = opt_mod.AdamWConfig(quantize_state=True, block=64)
+    got = opt_mod._zeros_state(oc, torch.empty(shape))
+    want = opt_mod.Quant8.encode(torch.zeros(shape), oc.block)
+    assert torch.equal(got.q, want.q) and torch.equal(got.hi, want.hi)
+    assert got.shape == want.shape == shape
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_update_leaf_in_chunks_equals_the_whole_leaf(quantize, monkeypatch):
+    """A leaf above ``UPDATE_CHUNK`` entries is updated chunk by chunk (a
+    ragged last chunk, a transposed view, a 1-d leaf without decay) with
+    the whole leaf's result, codes and all, bit for bit."""
+    oc = opt_mod.AdamWConfig(lr=1e-2, quantize_state=quantize, block=64)
+    rng = np.random.RandomState(5)
+    leaves = [torch.from_numpy(rng.randn(*s).astype(np.float32))
+              for s in ((3000,), (17, 129))]
+    leaves.append(torch.from_numpy(rng.randn(40, 60).astype(np.float32)).T)
+    step, lr, bc1, bc2 = opt_mod.step_scalars(oc, torch.tensor(4))
+    for p in leaves:
+        g = torch.from_numpy(rng.randn(*p.shape).astype(np.float32))
+        m, v = (opt_mod._zeros_state(oc, p) for _ in range(2))
+        m, v = (opt_mod.update_leaf(oc, p, g, m, v, lr, bc1, bc2)[i]
+                for i in (1, 2))
+        runs = []
+        for chunk in (1 << 24, 512):
+            monkeypatch.setattr(opt_mod, "UPDATE_CHUNK", chunk)
+            runs.append(opt_mod.update_leaf(oc, p, 2 * g, m, v, lr, bc1, bc2))
+        (p1, m1, v1), (p2, m2, v2) = runs
+        assert torch.equal(p1, p2) and p2.shape == p.shape
+        for a, b in ((m1, m2), (v1, v2)):
+            if quantize:
+                assert torch.equal(a.q, b.q) and torch.equal(a.hi, b.hi)
+                assert a.shape == b.shape
+            else:
+                assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("scale", [1e-8, 1e-3, 1.0, 1e3])
 def test_quant8_codes_match_the_reference(scale):
     rng = np.random.RandomState(3)
