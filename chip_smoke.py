@@ -161,7 +161,7 @@ Phases, in order; any failure exits nonzero before the result line:
    logits and every state tensor within 1e-4).
 13. Static analysis (``repro_torch.analysis``), after phase 14, on what
    the earlier phases built (nothing refitted).  Budget pass: every launch
-   of the five kernel libraries in phases 2-12 and 14 was recorded by its
+   of the six kernel libraries in phases 2-12 and 14 was recorded by its
    shapes, which
    each wrapper hands its launch counter (``kernel_budget.record_launches``
    turns the collecting on); for each recorded shape the Python
@@ -193,14 +193,22 @@ Phases, in order; any failure exits nonzero before the result line:
    q block dropping its last visible kv block) caught; ms per call beside
    the bound (10 dh operations per live pair and q head), the plain
    twin's and SDPA's backward, and K3's forward with and without the lse
-   store.  (b) Full-width 2-layer f32 steps (granite-moe at B = 2, S =
+   store.  K4-bwd against its plain twin ``ref.ssd_scan_bwd`` at hymba's
+   and mamba2's training microbatch (2, 4096, 50 / 80 heads of 64, ds 16 /
+   128, chunk 128), mild and strong decay, with K4's own cum and states:
+   every leaf and each of its four passes within relative L2 1e-4 and
+   max |err| <= 1e-4 max(1, max |plain|), two launches bit for bit, its
+   planted fault (each 32-row j block skipping its last t block) caught;
+   ms per call beside the bound (``ssd_bwd_ops``) and the twin's.  (b) Full-width 2-layer f32 steps (granite-moe at B = 2, S =
    1100; phi-3-vision, kimi-k2 with 8 experts and starcoder2 at B = 2, S
-   = 600): loss and every gradient leaf through the kernels against the
-   plain versions on the card, every leaf finite and nonzero, K3-bwd with
-   dq zeroed caught; the same in the trainer's bf16 (phi-3-vision and
-   starcoder2 at B = 2, S = 4096: leaves within relative L2 2^-4, the
-   loss within 2^-8, each K3-bwd call of the step within 2^-7 of its
-   twin on its own inputs); hymba raising K4's NotImplementedError.  (c)
+   = 600; hymba and mamba2 at B = 2, S = 1100, padded to 1152 for the
+   scan): loss and every gradient leaf through the kernels (K3 / K3-bwd,
+   K4 / K4-bwd) against the plain versions on the card, every leaf finite
+   and nonzero, K3-bwd with dq zeroed and K4-bwd with its planted fault
+   caught; the same in the trainer's bf16 (phi-3-vision, starcoder2 and
+   hymba at B = 2, S = 4096: leaves within relative L2 2^-4, the loss
+   within 2^-8, each K3-bwd call of the step within 2^-7 of its twin on
+   its own inputs).  (c)
    ``launch.train.main`` on granite-moe at full width, 6 steps of 4 x 4096
    tokens, grad_accum 2: exactly 96 K3 forward (tensor-core), 48 K3-bwd
    and 0 K4 launches in step 2, finite losses and grad norms, s/step,
@@ -210,7 +218,12 @@ Phases, in order; any failure exits nonzero before the result line:
    bytes; then the six large-head-dim configs (``TRAIN_RUNS``: phi-3-vision
    at full width with ``--opt8``, the others at full width and 2 layers),
    3 steps each, with their launch counts, s/step, tokens/s and peak
-   memory; then starcoder2's three steps again with the plain attention
+   memory; then hymba-1.5b (32 layers, 6 steps) and mamba2-2.7b (64
+   layers, 3 steps, 8-bit moments) whole at 4 x 4096 tokens, grad_accum 2
+   (``SSM_TRAIN_RUNS``): exactly 128 / 64 / 128 / 64 and 0 / 0 / 256 / 128
+   K3 / K3-bwd / K4 / K4-bwd launches in step 2, finite losses and grad
+   norms, s/step, tokens/s, peak memory and a traced last step (K4-bwd's
+   device ms); then starcoder2's three steps again with the plain attention
    and with f32 moments, beside the kernels' losses (``RISE_ARCH``).
 
 Each phase prints its wall time.  Then it prints the ``kernels`` JSON
@@ -2881,6 +2894,145 @@ def check_k3_bwd(dev) -> list:
     return rows
 
 
+#: Phase 14 (a): K4-bwd's shapes, each config's training microbatch (b, s)
+#: = (2, 4096) at chunk 128: config -> decay cases (the scale of a =
+#: -|N(0, 1)| * scale: mild, and strong, where exp(cum) underflows within a
+#: chunk).
+K4B_SHAPES = {"hymba-1.5b": (0.3, 3.0), "mamba2-2.7b": (0.3, 3.0)}
+#: Each leaf's relative L2 and max |err| / max(1, max |plain|) against the
+#: plain twin: the reference sweep's SSD atol (tests/test_torch_lm_kernels.py).
+K4B_TOL = 1e-4
+
+
+def ssd_bwd_ops(b: int, s: int, nh: int, dh: int, ds: int,
+                chunk: int) -> float:
+    """f32 operations of the scan's gradient, counting only the causal
+    (t, j) pairs: per chunk and head, 3 ds + 2 dh multiply-adds per pair (G
+    = C B^T, P = dy x^T, and the dx, dB, dC products) and one exp, beside 4
+    L dh ds multiply-adds for the state terms (U = sum e^{cum} dy C^T, the
+    entering state's part of dC, the leaving state's of dx and dB)."""
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = 2 * pairs * (3 * ds + 2 * dh) + pairs + 8 * chunk * dh * ds
+    return float(b * nh * (s // chunk) * per_chunk)
+
+
+def k4b_inputs(dev, arch: str, a_scale: float, b: int = 2, s: int = 4096):
+    """K4-bwd's inputs at ``arch``'s training microbatch from a seed: x,
+    a = -|N(0, 1)| * a_scale, B, C (as ``k4_inputs``), dy and dfinal, and
+    the forward's cum, entering states and final state (K4's own)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ssd
+
+    cfg = configs.get(arch).make_config()
+    nh, dh = cfg.n_ssm_heads, cfg.ssm_head_dim
+    g, ds = cfg.ssm_groups, cfg.ssm_state
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x, a = draw(b, s, nh, dh) * 0.3, -draw(b, s, nh).abs() * a_scale
+    bm, cm = draw(b, s, g, ds) * 0.3, draw(b, s, g, ds) * 0.3
+    dy, dfin = draw(b, s, nh, dh), draw(b, nh, dh, ds)
+    _, s_fin, cum, s_prev = ssd.ssd_passes_cuda(x, a, bm, cm, 128)
+    return x, a, bm, cm, cum, s_prev, s_fin, dy, dfin
+
+
+def check_k4_bwd(dev) -> list:
+    """Phase 14 (a): K4-bwd against its plain twin ``ref.ssd_scan_bwd`` at
+    hymba's and mamba2's training microbatch, chunk 128, mild and strong
+    decay, on the same inputs (K4's own cum and states): every leaf within
+    relative L2 ``K4B_TOL`` and max |err| <= ``K4B_TOL`` max(1, max
+    |plain|); each of the four passes against its plain twin on the
+    kernel's own inputs to it; two launches bit for bit; the planted fault
+    (each j block skipping its last t block) caught; ms per call beside the bound and
+    the plain twin's ms (mild decay).  No single PyTorch call computes the
+    scan's gradient, so ``library_ms`` is null."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_bwd
+
+    rows = []
+    for arch, scales in K4B_SHAPES.items():
+        for a_scale in scales:
+            inp = k4b_inputs(dev, arch, a_scale)
+            x, a, bm, cm, cum, s_prev, s_fin, dy, dfin = inp
+
+            def run(fault=0):
+                return ssd_bwd.ssd_scan_bwd_cuda(*inp, 128, fault=fault)
+
+            def plain():
+                return ref.ssd_scan_bwd(*inp, 128)
+
+            got, again, want = run(), run(), plain()
+            bad = run(ssd_bwd.FAULT_DROP_LAST_T_BLOCK)
+            # Each pass on the kernel's own inputs to it.
+            one = ssd_bwd.ssd_bwd_passes_cuda(*inp, 128,
+                                              chunk_states_only=True)
+            full = ssd_bwd.ssd_bwd_passes_cuda(*inp, 128)
+            u_p, dch_p, dcum_p = ref.ssd_bwd_chunk_states(dy, cm, cum,
+                                                          s_prev, 128)
+            dsn_p = ref.ssd_bwd_state_pass(cum, one[4], dfin, 128)
+            third_p = ref.ssd_bwd_chunk(x, bm, cm, dy, cum, s_prev, s_fin,
+                                        full[4], one[6], one[7], 128)
+            fourth_p = ref.ssd_bwd_group_sum(full[5], full[6], bm.shape[2])
+            torch.cuda.synchronize()
+            passes = {"pass1_u": (one[4], u_p), "pass1_dc": (one[6], dch_p),
+                      "pass1_dcum": (one[7], dcum_p),
+                      "pass2_dstate": (full[4], dsn_p),
+                      **{f"pass3_{n}": (full[i], w) for n, i, w in zip(
+                          ("dx", "da", "dbh", "dch"), (0, 1, 5, 6), third_p)},
+                      **{f"pass4_{n}": (full[i], w) for n, i, w in zip(
+                          ("db", "dc"), (2, 3), fourth_p)}}
+            errs, fault_caught = {}, False
+            for name, (g, w) in [(f"d{n}", (g, w)) for n, g, w in zip(
+                    ("x", "a", "bmat", "cmat"), got, want)] + list(
+                    passes.items()):
+                scale = max(1.0, float(w.abs().max()))
+                errs[name] = dict(max_abs_err=float((g - w).abs().max()),
+                                  rel_l2=rel_l2(g, w))
+                if not (errs[name]["max_abs_err"] <= K4B_TOL * scale
+                        and errs[name]["rel_l2"] <= K4B_TOL):
+                    raise AssertionError(f"K4-bwd {arch} a x {a_scale}: "
+                                         f"{name} {errs[name]}")
+            for g, g2, w, gb in zip(got, again, want, bad):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"K4-bwd {arch} a x {a_scale}: two "
+                                         "launches differ")
+                fault_caught |= rel_l2(gb, w) > K4B_TOL
+            if not fault_caught:
+                raise AssertionError(f"K4-bwd {arch} a x {a_scale}: the "
+                                     "check passed the planted fault")
+            b, s, nh, dh = x.shape
+            ds = bm.shape[3]
+            row = dict(arch=arch, a_scale=a_scale, shape=[b, s, nh, dh,
+                                                          bm.shape[2], ds],
+                       chunk=128, dfinal=True, errors=errs,
+                       max_abs_err=max(errs[f"d{n}"]["max_abs_err"]
+                                       for n in ("x", "a", "bmat", "cmat")),
+                       rel_l2=max(errs[f"d{n}"]["rel_l2"]
+                                  for n in ("x", "a", "bmat", "cmat")),
+                       tolerance=K4B_TOL, deterministic=True,
+                       planted_fault_caught=True)
+            if a_scale == scales[0]:
+                n_bytes = 4 * (3 * x.numel() + 2 * cum.numel()
+                               + 4 * bm.numel() + s_prev.numel()
+                               + 2 * s_fin.numel())
+                bnd, by = bound_ms(n_bytes, ssd_bwd_ops(b, s, nh, dh, ds,
+                                                        128))
+                row.update(ms=cuda_ms(run, reps=10),
+                           plain_ms=cuda_ms(plain, reps=2, warmup=1),
+                           library_ms=None, bound_ms=bnd, bound_by=by)
+            rows.append(row)
+            log("K4-BWD", json.dumps(row))
+            del inp, x, a, bm, cm, cum, s_prev, s_fin, dy, dfin, got, again
+            del want, bad, one, full, third_p, fourth_p, passes
+            torch.cuda.empty_cache()
+    return rows
+
+
 def _grads(cfg, model, batch) -> float:
     """The loss; the gradient is left in each parameter's ``.grad``."""
     from repro_torch.models import transformer as tfm
@@ -2907,29 +3059,76 @@ def _worst(model, want) -> tuple:
 
 #: Phase 14 (b): (config overrides, batch, sequence) of the full-width
 #: 2-layer f32 steps; kimi-k2's 384 experts cut to 8 as phase 12 serves it.
+#: hymba's and mamba2's 1100 steps are padded to 1152 for the scan.
 SMALL_STEPS = {
     TRAIN_ARCH: (dict(n_layers=2), 2, 1100),
     "phi-3-vision-4.2b": (dict(n_layers=2), 2, 600),
     "kimi-k2-1t-a32b": (dict(n_layers=2, n_experts=8), 2, 600),
     "starcoder2-7b": (dict(n_layers=2), 2, 600),
+    "hymba-1.5b": (dict(n_layers=2), 2, 1100),
+    "mamba2-2.7b": (dict(n_layers=2), 2, 1100),
 }
+
+
+@contextlib.contextmanager
+def lm_kernels(plain: bool = False, k3_bwd=None, k4_bwd=None):
+    """The four LM kernel entry points a train step reaches on the card (K3,
+    K3-bwd, K4's passes, K4-bwd): their plain versions where ``plain``,
+    else the kernels, with ``k3_bwd`` / ``k4_bwd`` in place of the backward
+    kernels where given; restored on exit."""
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                     ref, ssd, ssd_bwd)
+
+    slots = [(flash_attention, "flash_attention_cuda", ref.flash_attention),
+             (flash_attention_bwd, "flash_attention_bwd_cuda",
+              ref.flash_attention_bwd),
+             (ssd, "ssd_passes_cuda", ref.ssd_passes),
+             (ssd_bwd, "ssd_scan_bwd_cuda", ref.ssd_scan_bwd)]
+    real = [getattr(m, name) for m, name, _ in slots]
+    try:
+        for (m, name, twin), fn in zip(slots, real):
+            setattr(m, name, twin if plain else fn)
+        if k3_bwd is not None:
+            flash_attention_bwd.flash_attention_bwd_cuda = k3_bwd
+        if k4_bwd is not None:
+            ssd_bwd.ssd_scan_bwd_cuda = k4_bwd
+        yield
+    finally:
+        for (m, name, _), fn in zip(slots, real):
+            setattr(m, name, fn)
+
+
+def step_launches(cfg, per: int, dtype: str) -> dict:
+    """The launch counts of a train step of ``cfg`` under remat "full" with
+    ``per`` layer passes (layers x microbatches): K3 twice (the forward and
+    the recompute) and K3-bwd once per attention layer, all on ``dtype``'s
+    kernels; K4 twice and K4-bwd once per ssm layer."""
+    attn = per if cfg.n_heads > 0 else 0
+    scan = per if cfg.family in ("ssm", "hybrid") else 0
+    other = "f32_cuda_cores" if dtype == "bf16_wgmma" else "bf16_wgmma"
+    return {"flash_attention": 2 * attn, f"flash_attention_{dtype}": 2 * attn,
+            f"flash_attention_{other}": 0, "flash_attention_bwd": attn,
+            f"flash_attention_bwd_{dtype}": attn,
+            f"flash_attention_bwd_{other}": 0, "ssd": 2 * scan,
+            "ssd_bwd": scan, "ssd_scan_backward": scan}
 
 
 def small_train_step(dev, arch: str) -> dict:
     """Phase 14 (b), one config of ``SMALL_STEPS`` in f32 with remat
-    "full": loss and every gradient leaf through K3 / K3-bwd against the
-    same model with the plain versions on the card; every leaf's gradient
-    finite and nonzero; K3-bwd with dq zeroed fails the check; 2 K3 and 1
-    K3-bwd launches per layer.  Only the plain versions' gradients are
-    kept beside the model's own."""
+    "full": loss and every gradient leaf through K3 / K3-bwd and K4 /
+    K4-bwd against the same model with the plain versions on the card;
+    every leaf's gradient finite and nonzero; K3-bwd with dq zeroed (models
+    with attention) and K4-bwd with its planted fault (ssm / hybrid) fail
+    the check; the launches of ``step_launches``.  Only the plain versions'
+    gradients are kept beside the model's own."""
     import dataclasses
+    import functools
 
     import numpy as np
     import torch
 
     from repro_torch import configs
-    from repro_torch.kernels import flash_attention, flash_attention_bwd, ops
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention_bwd, ops, ssd_bwd
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import step as step_mod
 
@@ -2942,50 +3141,48 @@ def small_train_step(dev, arch: str) -> dict:
     toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, seq + 1)),
                            device=dev)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    real_fwd = flash_attention.flash_attention_cuda
-    real_bwd = flash_attention_bwd.flash_attention_bwd_cuda
-    try:
-        flash_attention.flash_attention_cuda = ref.flash_attention
-        flash_attention_bwd.flash_attention_bwd_cuda = ref.flash_attention_bwd
+    real_k3b = flash_attention_bwd.flash_attention_bwd_cuda
+    with lm_kernels(plain=True):
         loss_p = _grads(cfg, model, batch)
-        grads_p = [t.grad.clone() for t in model.parameters()]
-        flash_attention.flash_attention_cuda = real_fwd
-        flash_attention_bwd.flash_attention_bwd_cuda = real_bwd
+    grads_p = [t.grad.clone() for t in model.parameters()]
 
-        ops.reset_launches()
-        loss = _grads(cfg, model, batch)
-        counts = ops.launch_counts()
-        names = [n for n, _ in model.named_parameters()]
-        dead = [n for n, t in model.named_parameters()
-                if not (torch.isfinite(t.grad).all() and t.grad.abs().max() > 0)]
-        if dead:
-            raise AssertionError(f"{arch}: no finite nonzero gradient on the "
-                                 f"card: {dead}")
-        grad_err, grad_rel = _worst(model, grads_p)
+    ops.reset_launches()
+    loss = _grads(cfg, model, batch)
+    counts = ops.launch_counts()
+    names = [n for n, _ in model.named_parameters()]
+    dead = [n for n, t in model.named_parameters()
+            if not (torch.isfinite(t.grad).all() and t.grad.abs().max() > 0)]
+    if dead:
+        raise AssertionError(f"{arch}: no finite nonzero gradient on the "
+                             f"card: {dead}")
+    grad_err, grad_rel = _worst(model, grads_p)
 
-        def dq_zeroed(*args, **kw):
-            dq, dk, dv = real_bwd(*args, **kw)
-            return torch.zeros_like(dq), dk, dv
+    def dq_zeroed(*args, **kw):
+        dq, dk, dv = real_k3b(*args, **kw)
+        return torch.zeros_like(dq), dk, dv
 
-        flash_attention_bwd.flash_attention_bwd_cuda = dq_zeroed
-        _grads(cfg, model, batch)
-        bad_err, bad_rel = _worst(model, grads_p)
-    finally:
-        flash_attention.flash_attention_cuda = real_fwd
-        flash_attention_bwd.flash_attention_bwd_cuda = real_bwd
+    controls = {}
+    if cfg.n_heads > 0:
+        with lm_kernels(k3_bwd=dq_zeroed):
+            _grads(cfg, model, batch)
+        controls["k3_bwd_dq_zeroed"] = _worst(model, grads_p)
+    if cfg.family in ("ssm", "hybrid"):
+        with lm_kernels(k4_bwd=functools.partial(
+                ssd_bwd.ssd_scan_bwd_cuda,
+                fault=ssd_bwd.FAULT_DROP_LAST_T_BLOCK)):
+            _grads(cfg, model, batch)
+        controls["k4_bwd_fault"] = _worst(model, grads_p)
 
     loss_rel = abs(loss - loss_p) / abs(loss_p)
     if loss_rel > 1e-5 or grad_err > 1e-4 or grad_rel > GRAD_REL_L2:
         raise AssertionError(f"{arch} train step kernels vs plain: loss rel "
                              f"{loss_rel}, worst gradient {grad_err}, worst "
                              f"relative L2 {grad_rel}")
-    if bad_err <= 1e-4 and bad_rel <= GRAD_REL_L2:
-        raise AssertionError(f"{arch}: the gradient check passed K3-bwd with "
-                             "dq zeroed")
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_f32_cuda_cores": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers,
-            "flash_attention_bwd_f32_cuda_cores": cfg.n_layers, "ssd": 0}
+    for name, (bad_err, bad_rel) in controls.items():
+        if bad_err <= 1e-4 and bad_rel <= GRAD_REL_L2:
+            raise AssertionError(f"{arch}: the gradient check passed "
+                                 f"{name}")
+    want = step_launches(cfg, cfg.n_layers, "f32_cuda_cores")
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"{arch} small step launches {counts}")
     del model, grads_p
@@ -2995,50 +3192,27 @@ def small_train_step(dev, arch: str) -> dict:
                loss=loss, loss_rel_err=loss_rel,
                worst_grad_err_over_max=grad_err,
                worst_grad_rel_l2=grad_rel, leaves=len(names),
-               dq_zeroed_err_over_max=bad_err, dq_zeroed_rel_l2=bad_rel,
-               launches=counts)
+               controls_err_over_max_rel_l2=controls, launches=counts)
     log("TRAIN-SMALL", json.dumps(row))
     return row
 
 
 def small_train_steps(dev) -> dict:
-    """Phase 14 (b): every ``SMALL_STEPS`` config, every ``BF16_STEPS``
-    config, then hymba's reduced config raising K4's NotImplementedError
-    on the card."""
-    import torch
-
-    from repro_torch import configs
-    from repro_torch.models import transformer as tfm
-    from repro_torch.training import optimizer as opt_mod
-    from repro_torch.training import step as step_mod
-
+    """Phase 14 (b): every ``SMALL_STEPS`` config, then every
+    ``BF16_STEPS`` config."""
     rows = {arch: small_train_step(dev, arch) for arch in SMALL_STEPS}
     bf16 = {arch: bf16_train_step(dev, arch) for arch in BF16_STEPS}
-    hymba = configs.get("hymba-1.5b").reduced()
-    hmodel = step_mod.init_train_state(hymba, opt_mod.AdamWConfig(), 0,
-                                       dev)["params"]
-    htoks = torch.randint(0, hymba.vocab_size, (2, 41), device=dev,
-                          generator=torch.Generator(device=dev).manual_seed(14))
-    try:
-        tfm.forward_train(hymba, hmodel, {"tokens": htoks[:, :-1],
-                                          "labels": htoks[:, 1:]})
-    except NotImplementedError as e:
-        k4_raises = str(e)
-    else:
-        raise AssertionError("hymba trained on the card without K4's "
-                             "backward")
-    del hmodel
-    torch.cuda.empty_cache()
-    return dict(steps=rows, bf16_steps=bf16, k4_raises=k4_raises)
+    return dict(steps=rows, bf16_steps=bf16)
 
 
 #: Phase 14 (b), bf16: (config overrides, batch, sequence) of the
 #: full-width 2-layer steps in the trainer's bf16 over f32 masters, at
 #: ``TRAIN_RUNS``' microbatch shapes: dh 96, and dh 128 (K3-bwd's split
-#: plan).
+#: plan); and hymba's (SWA; K4 / K4-bwd in f32 inside the bf16 model).
 BF16_STEPS = {
     "phi-3-vision-4.2b": (dict(n_layers=2), 2, 4096),
     "starcoder2-7b": (dict(n_layers=2), 2, 4096),
+    "hymba-1.5b": (dict(n_layers=2), 2, 4096),
 }
 #: Each bf16 gradient leaf's relative L2 against the plain versions' (f32
 #: attention rounded to bf16 once): 8x K3-bwd's own 2^-7 per call, for the
@@ -3050,19 +3224,19 @@ BF16_LOSS_REL = 2 ** -8
 
 def bf16_train_step(dev, arch: str) -> dict:
     """Phase 14 (b), one config of ``BF16_STEPS``: the loss and every
-    gradient leaf through K3 / K3-bwd against the same model with the plain
-    versions on the card (``BF16_LOSS_REL``, ``BF16_GRAD_REL_L2``); each
-    K3-bwd call of the step against the plain twin on its own inputs (dq,
-    dk, dv within relative L2 2^-7, as phase 14 (a)); K3-bwd with dq zeroed
-    caught; 2 K3 and 1 K3-bwd launches per layer, all tensor-core."""
+    gradient leaf through K3 / K3-bwd (and K4 / K4-bwd for hymba) against
+    the same model with the plain versions on the card (``BF16_LOSS_REL``,
+    ``BF16_GRAD_REL_L2``); each K3-bwd call of the step against the plain
+    twin on its own inputs (dq, dk, dv within relative L2 2^-7, as phase 14
+    (a)); K3-bwd with dq zeroed caught; the launches of
+    ``step_launches``, K3's all tensor-core."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch import configs
-    from repro_torch.kernels import flash_attention, flash_attention_bwd, ops
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention_bwd, ops, ref
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import step as step_mod
 
@@ -3074,7 +3248,6 @@ def bf16_train_step(dev, arch: str) -> dict:
     toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, seq + 1)),
                            device=dev)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    real_fwd = flash_attention.flash_attention_cuda
     real_bwd = flash_attention_bwd.flash_attention_bwd_cuda
     calls = []
 
@@ -3090,24 +3263,17 @@ def bf16_train_step(dev, arch: str) -> dict:
         dq, dk, dv = real_bwd(*args)
         return torch.zeros_like(dq), dk, dv
 
-    try:
-        flash_attention.flash_attention_cuda = ref.flash_attention
-        flash_attention_bwd.flash_attention_bwd_cuda = ref.flash_attention_bwd
+    with lm_kernels(plain=True):
         loss_p = _grads(cfg, model, batch)
-        grads_p = [t.grad.clone() for t in model.parameters()]
-        flash_attention.flash_attention_cuda = real_fwd
-        flash_attention_bwd.flash_attention_bwd_cuda = checked
-
+    grads_p = [t.grad.clone() for t in model.parameters()]
+    with lm_kernels(k3_bwd=checked):
         ops.reset_launches()
         loss = _grads(cfg, model, batch)
         counts = ops.launch_counts()
-        grad_err, grad_rel = _worst(model, grads_p)
-        flash_attention_bwd.flash_attention_bwd_cuda = dq_zeroed
+    grad_err, grad_rel = _worst(model, grads_p)
+    with lm_kernels(k3_bwd=dq_zeroed):
         _grads(cfg, model, batch)
-        bad_err, bad_rel = _worst(model, grads_p)
-    finally:
-        flash_attention.flash_attention_cuda = real_fwd
-        flash_attention_bwd.flash_attention_bwd_cuda = real_bwd
+    bad_err, bad_rel = _worst(model, grads_p)
 
     loss_rel = abs(loss - loss_p) / abs(loss_p)
     call_rel = max(max(c.values()) for c in calls)
@@ -3119,10 +3285,7 @@ def bf16_train_step(dev, arch: str) -> dict:
     if bad_rel <= BF16_GRAD_REL_L2:
         raise AssertionError(f"{arch}: the bf16 gradient check passed K3-bwd "
                              "with dq zeroed")
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bf16_wgmma": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers,
-            "flash_attention_bwd_bf16_wgmma": cfg.n_layers, "ssd": 0}
+    want = step_launches(cfg, cfg.n_layers, "bf16_wgmma")
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"{arch} bf16 step launches {counts}")
     del model, grads_p
@@ -3143,8 +3306,8 @@ def _step_groups(prof) -> tuple[dict, list]:
     kernels that took the most."""
     from torch.autograd import DeviceType
 
-    groups = {"K3 forward": 0.0, "K3-bwd": 0.0, "cuBLAS GEMM": 0.0,
-              "other": 0.0}
+    groups = {"K3 forward": 0.0, "K3-bwd": 0.0, "K4 forward": 0.0,
+              "K4-bwd": 0.0, "cuBLAS GEMM": 0.0, "other": 0.0}
     by_name: dict[str, list] = {}
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
@@ -3156,6 +3319,10 @@ def _step_groups(prof) -> tuple[dict, list]:
         tot[1] += 1
         if "flash_kernel" in name or "flash_wgmma_kernel" in name:
             groups["K3 forward"] += ms
+        elif "ssd_bwd_" in name:
+            groups["K4-bwd"] += ms
+        elif "ssd_" in name:
+            groups["K4 forward"] += ms
         elif any(k in name for k in ("bwd_dot_kernel", "bwd_prep_kernel",
                                      "bwd_dkv_", "bwd_dq_")):
             groups["K3-bwd"] += ms
@@ -3179,59 +3346,21 @@ def full_width_training(dev) -> dict:
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import checkpoint as ckpt
-    from repro_torch.kernels import ops
     from repro_torch.launch import train
 
-    seen: dict = {"s": [], "gnorm": []}
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-
-    def on_step(step, state, m, seconds):
-        seen["s"].append(seconds)
-        seen["gnorm"].append(float(m["grad_norm"]))
-        if step == 0:
-            ops.reset_launches()
-        elif step == 1:
-            seen["launches"] = ops.launch_counts()
-        elif step == 4:
-            torch.cuda.synchronize()
-            prof.start()
-            seen["t_traced"] = time.perf_counter()
-        elif step == 5:
-            torch.cuda.synchronize()
-            seen["traced_wall_ms"] = (time.perf_counter()
-                                      - seen["t_traced"]) * 1e3
-            prof.stop()
-
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    losses = train.main(TRAIN_ARGV, on_step=on_step)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    counts = seen["launches"]
-    want = {"flash_attention": 96, "flash_attention_bf16_wgmma": 96,
-            "flash_attention_f32_cuda_cores": 0, "flash_attention_bwd": 48,
-            "flash_attention_bwd_bf16_wgmma": 48,
-            "flash_attention_bwd_f32_cuda_cores": 0, "ssd": 0}
-    got = {k: counts[k] for k in want}
+    losses, seen = _train_run(TRAIN_ARGV, {}, trace=True)
+    peak_gb, traced = seen["peak_gb"], seen["traced"]
+    want = step_launches(seen["cfg"], 2 * seen["cfg"].n_layers, "bf16_wgmma")
+    got = {k: seen["launches"][k] for k in want}
     if got != want:
         raise AssertionError(f"full-width step launches {got}, want {want}")
     if not all(np.isfinite(losses)) or not all(np.isfinite(seen["gnorm"])):
         raise AssertionError(f"non-finite loss / grad norm: {losses} "
                              f"{seen['gnorm']}")
-    groups, top = _step_groups(prof)
-    busy = sum(groups.values())
     s_step = statistics.median(seen["s"][1:])
     tokens = 4 * 4096
-    traced = dict(wall_ms=seen["traced_wall_ms"], device_ms=groups,
-                  device_busy_ms=busy,
-                  device_idle_share=1.0 - busy / seen["traced_wall_ms"],
-                  top_kernels_ms_launches=top)
-    if busy == 0:
-        traced = dict(wall_ms=seen["traced_wall_ms"], device="not measured")
-    del prof
-    torch.cuda.empty_cache()
 
     # The resume check at 2 layers: 4 steps, against 2 + save + restore +
     # 2, in one process (the restore builds a fresh train state).
@@ -3307,19 +3436,24 @@ TRAIN_RUNS = {
 }
 
 
-def _train_run(argv: list, over: dict) -> tuple[list, dict]:
+def _train_run(argv: list, over: dict, trace: bool = False
+               ) -> tuple[list, dict]:
     """``launch.train.main(argv)`` with its config builder wrapped to apply
     ``over`` -> the losses, and per step the seconds and grad norms, the
     parameter count, the launches of step 2 (counters zeroed after step 1)
-    and the peak memory."""
+    and the peak memory; with ``trace``, the last step traced
+    (``torch.profiler``): its wall ms and device ms by kernel group."""
     import dataclasses
 
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
     seen: dict = {"s": [], "gnorm": []}
+    steps = int(argv[argv.index("--steps") + 1])
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     real_build = train.build
 
     def build(args):
@@ -3336,6 +3470,21 @@ def _train_run(argv: list, over: dict) -> tuple[list, dict]:
             ops.reset_launches()
         elif step == 1:
             seen["launches"] = ops.launch_counts()
+        if trace and step == steps - 2:
+            torch.cuda.synchronize()
+            prof.start()
+            seen["t_traced"] = time.perf_counter()
+        elif trace and step == steps - 1:
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - seen["t_traced"]) * 1e3
+            prof.stop()
+            groups, top = _step_groups(prof)
+            busy = sum(groups.values())
+            seen["traced"] = dict(
+                step=steps, wall_ms=wall, device_ms=groups,
+                device_busy_ms=busy, device_idle_share=1.0 - busy / wall,
+                top_kernels_ms_launches=top) if busy > 0 else dict(
+                step=steps, wall_ms=wall, device="not measured")
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3390,6 +3539,52 @@ def large_head_dim_training(dev) -> dict:
     return rows
 
 
+#: Phase 14 (c), the ssm and hybrid configs through ``launch.train.main``,
+#: whole (hymba-1.5b: 32 layers, mamba2-2.7b: 64), 4 x 4096 tokens per step,
+#: grad_accum 2: name -> (steps, flags).  mamba2's f32 AdamW moments do not
+#: fit beside its 2.83 B f32 masters and gradients on 80 GB (the update of
+#: a stacked in_proj leaf asked for 6.46 GiB more at 69.09 GiB allocated),
+#: so it runs with 8-bit moments.
+SSM_TRAIN_RUNS = {"hymba-1.5b": (6, []), "mamba2-2.7b": (3, ["--opt8"])}
+SSM_TRAIN_ARGV = ["--global-batch", "4", "--seq-len", "4096", "--grad-accum",
+                  "2", "--seed", "0", "--log-every", "1"]
+
+
+def ssm_training(dev) -> dict:
+    """Phase 14 (c), the configs of ``SSM_TRAIN_RUNS``: finite losses and
+    grad norms; in step 2 exactly the launches of ``step_launches`` over 2
+    microbatches (remat "full": K3 twice and K3-bwd once per attention
+    layer, all tensor-core; K4 twice and K4-bwd once per layer); s/step
+    (median of steps 2 on), tokens/s, peak memory and the last step traced,
+    with K4-bwd's device ms."""
+    import numpy as np
+
+    rows = {}
+    for arch, (steps, flags) in SSM_TRAIN_RUNS.items():
+        argv = ["--arch", arch, "--steps", str(steps), *SSM_TRAIN_ARGV,
+                *flags]
+        losses, seen = _train_run(argv, {}, trace=True)
+        cfg = seen["cfg"]
+        want = step_launches(cfg, 2 * cfg.n_layers, "bf16_wgmma")
+        got = {k: seen["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{arch}: step 2 launches {got}, want {want}")
+        if not (all(np.isfinite(losses)) and all(np.isfinite(seen["gnorm"]))):
+            raise AssertionError(f"{arch}: non-finite loss / grad norm: "
+                                 f"{losses} {seen['gnorm']}")
+        s_step = float(np.median(seen["s"][1:]))
+        rows[arch] = dict(
+            argv=" ".join(argv), n_layers=cfg.n_layers, d_model=cfg.d_model,
+            ssm=[cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+                 cfg.ssm_state], params=seen["params"], losses=losses,
+            grad_norms=seen["gnorm"], step_s=seen["s"],
+            s_per_step_median_from_2=s_step, tokens_per_s=4 * 4096 / s_step,
+            peak_memory_gb=seen["peak_gb"], launches_step_2=got,
+            traced_last_step=seen["traced"])
+        log("TRAIN-SSM", json.dumps(rows[arch]))
+    return rows
+
+
 #: Phase 14 (c): the config whose three steps are run again with the plain
 #: attention swapped in, and with f32 moments in place of 8-bit ones, to
 #: tell whose the loss's rise at step 2 is: K3 / K3-bwd's, the 8-bit
@@ -3403,20 +3598,10 @@ def loss_rise_runs(kernels_row: dict) -> dict:
     moments; step 1's loss through the plain versions within
     ``BF16_LOSS_REL`` of the kernels' (``kernels_row``); the three runs'
     losses and grad norms side by side."""
-    from repro_torch.kernels import flash_attention, flash_attention_bwd
-    from repro_torch.kernels import ref
-
     flags, over = TRAIN_RUNS[RISE_ARCH]
     argv = ["--arch", RISE_ARCH] + flags + TRAIN_RUN_ARGV
-    real_fwd = flash_attention.flash_attention_cuda
-    real_bwd = flash_attention_bwd.flash_attention_bwd_cuda
-    try:
-        flash_attention.flash_attention_cuda = ref.flash_attention
-        flash_attention_bwd.flash_attention_bwd_cuda = ref.flash_attention_bwd
+    with lm_kernels(plain=True):
         plain, plain_seen = _train_run(argv, over)
-    finally:
-        flash_attention.flash_attention_cuda = real_fwd
-        flash_attention_bwd.flash_attention_bwd_cuda = real_bwd
     f32_moments, f32_seen = _train_run([a for a in argv if a != "--opt8"],
                                        over)
     rel = abs(plain[0] - kernels_row["losses"][0]) / abs(plain[0])
@@ -3439,12 +3624,14 @@ def loss_rise_runs(kernels_row: dict) -> dict:
 
 
 def training_phase(dev) -> dict:
-    """Phase 14: (a) K3-bwd, (b) small steps kernels vs plain (f32 and
-    bf16), (c) the full-width run, the resume check, the six large-head-dim
-    configs and the loss-rise runs."""
-    rows = dict(k3_bwd=check_k3_bwd(dev), small=small_train_steps(dev),
-                full=full_width_training(dev),
-                configs=large_head_dim_training(dev))
+    """Phase 14: (a) K3-bwd and K4-bwd, (b) small steps kernels vs plain
+    (f32 and bf16), (c) the full-width run, the resume check, the six
+    large-head-dim configs, the ssm / hybrid configs and the loss-rise
+    runs."""
+    rows = dict(k3_bwd=check_k3_bwd(dev), k4_bwd=check_k4_bwd(dev),
+                small=small_train_steps(dev), full=full_width_training(dev),
+                configs=large_head_dim_training(dev),
+                ssm=ssm_training(dev))
     rows["rise"] = loss_rise_runs(rows["configs"][RISE_ARCH])
     return rows
 
@@ -3735,27 +3922,33 @@ def main() -> int:
     del har12
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
     full = training["full"]
+    trained = {**training["configs"], **training["ssm"]}
     k3_paths = {"hymba-1.5b": serve_counts["flash_attention"],
                 **{r["arch"]: r["k3_launches"] for r in family_rows.values()},
                 f"{TRAIN_ARCH} train step":
                     full["launches_step_2"]["flash_attention"],
                 **{f"{arch} train step": r["launches_step_2"][
                     "flash_attention"]
-                   for arch, r in training["configs"].items()}}
+                   for arch, r in trained.items()}}
     k4_paths = {"hymba-1.5b": serve_counts["ssd"],
-                **{r["arch"]: r["k4_launches"] for r in family_rows.values()}}
+                **{r["arch"]: r["k4_launches"] for r in family_rows.values()},
+                **{f"{arch} train step": r["launches_step_2"]["ssd"]
+                   for arch, r in training["ssm"].items()}}
+    k4b_paths = {f"{arch} train step": r["launches_step_2"]["ssd_bwd"]
+                 for arch, r in training["ssm"].items()}
+    k4b = [r for r in training["k4_bwd"] if "ms" in r]
     k3_tc = serve_counts["flash_attention_bf16_wgmma"] + sum(
         r["k3_tensor_core"] for r in family_rows.values()) + \
         full["launches_step_2"]["flash_attention_bf16_wgmma"] + sum(
             r["launches_step_2"]["flash_attention_bf16_wgmma"]
-            for r in training["configs"].values())
+            for r in trained.values())
     k3b = next(r for r in training["k3_bwd"] if r["dtype"] == "bfloat16"
                and r["shape"] == "granite-moe training")
     k3b_paths = {f"{TRAIN_ARCH} train step":
                      full["launches_step_2"]["flash_attention_bwd"],
                  **{f"{arch} train step": r["launches_step_2"][
                      "flash_attention_bwd"]
-                    for arch, r in training["configs"].items()}}
+                    for arch, r in trained.items()}}
 
     # K3's entry is the SWA layer in bf16 (29 of the 32 launches); the
     # global layer's row rides along.
@@ -3863,7 +4056,7 @@ def main() -> int:
                  "bf16_wgmma": full["launches_step_2"][
                      "flash_attention_bwd_bf16_wgmma"] + sum(
                      r["launches_step_2"]["flash_attention_bwd_bf16_wgmma"]
-                     for r in training["configs"].values()),
+                     for r in trained.values()),
                  "f32_cuda_cores": full["launches_step_2"][
                      "flash_attention_bwd_f32_cuda_cores"]},
              max_abs_err=k3b["max_abs_err"], rel_l2={
@@ -3877,6 +4070,33 @@ def main() -> int:
                  "dims", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms", "max_abs_err")}
                  for r in training["k3_bwd"]}),
+        dict(name="ssd_bwd", route="cuda",
+             budget=analysis["budgets"]["ssd_bwd"],
+             source="src/repro_torch/kernels/csrc/ssd_bwd.cu",
+             replaces=None,
+             replaces_note="none: K4's gradient; the reference "
+                           "differentiates its jnp ssd_chunked "
+                           "(src/repro/models/ssm.py:74)",
+             design="K4's three passes in reverse (each tile's own state "
+                    "gradient, the reverse state pass, each tile's dx, da "
+                    "and per-head dB / dC in 32 x 32 blocks of (t, j)), "
+                    "then dB / dC summed over each group's heads; f32 on "
+                    "the CUDA cores, no atomics; 4 device launches per call",
+             launches=sum(k4b_paths.values()), launches_by_path=k4b_paths,
+             max_abs_err=max(r["max_abs_err"] for r in training["k4_bwd"]),
+             rel_l2=max(r["rel_l2"] for r in training["k4_bwd"]),
+             ms=k4b[0]["ms"], plain_ms=k4b[0]["plain_ms"],
+             bound_ms=k4b[0]["bound_ms"], bound_by=k4b[0]["bound_by"],
+             library_ms=None,
+             library_note="no single PyTorch call computes the scan's "
+                          "gradient",
+             shape=k4b[0]["shape"],
+             shapes={r["arch"]: {key: r[key] for key in (
+                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+                 for r in k4b},
+             device_ms_per_step={arch: r["traced_last_step"].get(
+                 "device_ms", {}).get("K4-bwd", "not measured")
+                 for arch, r in training["ssm"].items()}),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -2,7 +2,7 @@
 
 The port's counterpart of ``repro/analysis/pallas_budget.py``.  The TPU
 pass traced each ``pallas_call`` and summed VMEM blocks from BlockSpecs.
-Here the four kernels are CUDA C++ (``kernels/csrc``), and what a launch
+Here the kernels are CUDA C++ (``kernels/csrc``), and what a launch
 asks of the card is decided by each library's host code: its grid, its
 block and its dynamic shared memory.  This module mirrors that host
 arithmetic in Python, launch for launch, so the CPU can check the budgets
@@ -18,7 +18,9 @@ of every kernel instance at every shape, with no card and no ``nvcc``:
 * K4 ``ssd.cu``: ``state_smem`` / ``scan_smem`` and the state pass;
 * K3-bwd ``flash_attention_bwd.cu``: f32, the D pass, then
   ``dkv_smem_floats`` / ``dq_smem_floats``; bf16, the lse / D pre-pass,
-  then ``BwdLayout<DH>::kDkvSmem`` / ``kDqSmem``.
+  then ``BwdLayout<DH>::kDkvSmem`` / ``kDqSmem``;
+* K4-bwd ``ssd_bwd.cu``: ``state_smem`` / ``chunk_smem``, the state pass
+  and the group sum.
 
 Each library also exports a plan query that returns the launches its own
 host code would make (``csrc/budget.cuh``).  On a card the pass holds the
@@ -67,7 +69,7 @@ GRID_LIMITS = (2**31 - 1, 65535, 65535)
 
 CSRC = "src/repro_torch/kernels/csrc"
 LIBRARIES = ("kernel_matrix", "solver", "flash_attention", "ssd",
-             "flash_attention_bwd")
+             "flash_attention_bwd", "ssd_bwd")
 SOURCE = {lib: f"{CSRC}/{lib}.cu" for lib in LIBRARIES}
 #: Ints per launch in a plan query's output, launches per call at most.
 PLAN_INTS = 8
@@ -274,6 +276,59 @@ def k4_plan(b: int, s: int, nh: int, g: int, dh: int, ds: int, chunk: int,
 
 
 # ---------------------------------------------------------------------------
+# K4-bwd: ssd_bwd.cu plan<DH, DS>()
+# ---------------------------------------------------------------------------
+
+K4B_THREADS, K4B_MAX_CHUNK, K4B_BLOCK, K4B_PAD = 256, 128, 32, 4
+K4B_BLOCK_LD = K4B_BLOCK + 1
+
+
+def k4b_state_smem(dh: int, ds_pad: int, chunk: int) -> int:
+    """Pass 1's dynamic shared memory (``state_smem``): dy, C e^{cum}, the
+    entering state and e^{cum}."""
+    return 4 * (chunk * (dh + K4B_PAD + ds_pad + 1) + dh * (ds_pad + K4B_PAD))
+
+
+def k4b_chunk_smem(dh: int, ds_pad: int, chunk: int) -> int:
+    """Pass 3's dynamic shared memory (``chunk_smem``): dS' and its
+    transpose, the x / B / dy / C blocks, the three 32 x 32 blocks, the
+    chunk's dC, cum and dcum, and the reductions' scratch."""
+    ld_x, ld_b = dh + K4B_PAD, ds_pad + K4B_PAD
+    return 8 * (K4B_MAX_CHUNK // 32) + 4 * (
+        dh * ld_b + ds_pad * ld_x + 2 * K4B_BLOCK * (ld_x + ld_b)
+        + 3 * K4B_BLOCK * K4B_BLOCK_LD + chunk * (ld_b + 2)
+        + K4B_THREADS // WARP)
+
+
+def k4b_plan(b: int, s: int, nh: int, g: int, dh: int, ds: int, chunk: int,
+             chunk_states_only: int = 0) -> list[Launch]:
+    """K4-bwd's launches for x (b, s, nh, dh), B / C (b, s, g, ds): chunk
+    states, state pass, chunk, group sum (the first alone with
+    ``chunk_states_only``)."""
+    if b <= 0 or nh <= 0:
+        return []
+    if g <= 0 or nh % g or not 0 < ds <= K4_DS_WIDTHS[-1] or chunk <= 0 \
+            or chunk % K4B_BLOCK or chunk > K4B_MAX_CHUNK or s <= 0 \
+            or s % chunk or dh not in K4_HEAD_DIMS:
+        raise ValueError(f"K4-bwd takes no (s {s}, g {g}, dh {dh}, ds {ds}, "
+                         f"chunk {chunk})")
+    w = k4_padded_ds(ds)
+    tiles = b * (s // chunk) * nh
+    blk = (K4B_THREADS, 1, 1)
+    out = [Launch(f"ssd_bwd_chunk_state_kernel<{dh}, {w}>", (tiles, 1, 1),
+                  blk, k4b_state_smem(dh, w, chunk))]
+    if chunk_states_only:
+        return out
+    return out + [
+        Launch("ssd_bwd_state_pass_kernel",
+               (_cdiv(b * nh * dh * ds, K4B_THREADS), 1, 1), blk, 0),
+        Launch(f"ssd_bwd_chunk_kernel<{dh}, {w}>", (tiles, 1, 1), blk,
+               k4b_chunk_smem(dh, w, chunk)),
+        Launch("ssd_bwd_group_sum_kernel",
+               (_cdiv(b * s * g * ds, K4B_THREADS), 1, 1), blk, 0)]
+
+
+# ---------------------------------------------------------------------------
 # K3-bwd: flash_attention_bwd.cu plan<DH>()
 # ---------------------------------------------------------------------------
 
@@ -367,6 +422,8 @@ def mirror_plan(library: str, args: tuple, sm_count: int = H100_SMS,
         return k4_plan(*args)
     if library == "flash_attention_bwd":
         return k3b_plan(*args)
+    if library == "ssd_bwd":
+        return k4b_plan(*args)
     raise ValueError(f"no kernel library {library!r}")
 
 
@@ -445,7 +502,7 @@ def card_limits() -> tuple[int, int]:
 
 @contextlib.contextmanager
 def record_launches():
-    """Record the plan arguments of every launch of the four kernels while
+    """Record the plan arguments of every launch of the kernels while
     the context is open: ``{library: set of argument tuples}``.
 
     Each kernel's launch counter (``kernels.build.LaunchCounter``) collects
@@ -464,11 +521,12 @@ def record_launches():
 
 def _counters() -> dict:
     from repro_torch.kernels import (flash_attention, flash_attention_bwd,
-                                     rbf, solver, ssd)
+                                     rbf, solver, ssd, ssd_bwd)
 
     return {"kernel_matrix": rbf.LAUNCHES, "solver": solver.LAUNCHES,
             "flash_attention": flash_attention.LAUNCHES, "ssd": ssd.LAUNCHES,
-            "flash_attention_bwd": flash_attention_bwd.LAUNCHES}
+            "flash_attention_bwd": flash_attention_bwd.LAUNCHES,
+            "ssd_bwd": ssd_bwd.LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -549,17 +607,23 @@ def grid_covers(library: str, args: tuple, launches: list[Launch]
         if q_rows < sq or q_heads != b * hq:
             bad.append(f"dQ grid {dq.grid} does not cover {b * hq} heads x "
                        f"{sq} query rows")
-    elif library == "ssd":
-        b, s, nh, _, dh, ds, chunk, _ = args
+    elif library in ("ssd", "ssd_bwd"):
+        b, s, nh, g, dh, ds, chunk, _ = args
         w = k4_padded_ds(ds)
         if s % chunk:
             bad.append(f"s {s} is not a multiple of chunk {chunk}")
         tiles = b * (s // chunk) * nh
         for ln in launches:
-            if ln.kernel == "ssd_state_pass_kernel":
+            if ln.kernel in ("ssd_state_pass_kernel",
+                             "ssd_bwd_state_pass_kernel"):
                 if ln.grid[0] * K4_THREADS < b * nh * dh * ds:
                     bad.append(f"state pass grid {ln.grid} does not cover "
                                f"{b * nh * dh * ds} state values")
+                continue
+            if ln.kernel == "ssd_bwd_group_sum_kernel":
+                if ln.grid[0] * K4B_THREADS < b * s * g * ds:
+                    bad.append(f"group sum grid {ln.grid} does not cover "
+                               f"{b * s * g * ds} values")
                 continue
             if not ln.kernel.endswith(f", {w}>") or w < ds:
                 bad.append(f"{ln.kernel}: ds {ds} not padded to {w}")
@@ -689,9 +753,10 @@ def fused_vs_oracle(cfg: dict, oracle_bytes: Optional[int] = None,
 #: The kernel calls the main paths make, at their shapes (the plan query's
 #: arguments): the deployed banks and the padded training set (K1), the
 #: Table II and har12 CV lanes in every mode (K2), each served prefill's
-#: attention in both dtypes (K3), hymba's and mamba2's scans (K4), and
-#: the training attention forward and backward (K3, K3-bwd) of granite-moe
-#: and K3-bwd at every large-head-dim config's training microbatch.
+#: attention in both dtypes (K3), hymba's and mamba2's scans (K4), the
+#: training attention forward and backward (K3, K3-bwd) of granite-moe,
+#: K3-bwd at every large-head-dim config's training microbatch, and the
+#: scan and its gradient (K4, K4-bwd) at hymba's and mamba2's.
 MAIN_PATH_CALLS = (
     ("kernel_matrix", "balance rbf bank", (3, 188, 71, 4, 1)),
     ("kernel_matrix", "har12 rbf bank", (66, 1875, 675, 5, 1)),
@@ -714,6 +779,10 @@ MAIN_PATH_CALLS = (
     ("flash_attention", "whisper cross bf16", (1, 4, 16, 16, 64, 1500, 64)),
     ("ssd", "hymba", (4, 2048, 50, 1, 64, 16, 128, 0)),
     ("ssd", "mamba2", (4, 2048, 80, 1, 64, 128, 128, 0)),
+    ("ssd", "hymba training", (2, 4096, 50, 1, 64, 16, 128, 0)),
+    ("ssd", "mamba2 training", (2, 4096, 80, 1, 64, 128, 128, 0)),
+    ("ssd_bwd", "hymba training", (2, 4096, 50, 1, 64, 16, 128, 0)),
+    ("ssd_bwd", "mamba2 training", (2, 4096, 80, 1, 64, 128, 128, 0)),
     ("flash_attention", "granite-moe training bf16 (lse)",
      (2, 2, 16, 8, 4096, 4096, 64)),
     ("flash_attention_bwd", "granite-moe training bf16",

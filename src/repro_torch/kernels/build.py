@@ -33,7 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 #: kernel library name -> its translation unit (headers are shared).
 SOURCES = {"kernel_matrix": "kernel_matrix.cu", "solver": "solver.cu",
            "flash_attention": "flash_attention.cu", "ssd": "ssd.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "ssd_bwd": "ssd_bwd.cu"}
 HEADERS = ("tiles.cuh", "budget.cuh", "hopper.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -143,6 +144,7 @@ _SIGNATURES = {
              _P], 8),
     "flash_attention_bwd": ("k3b", "k3b_flash_attention_bwd",
                             [_P] * 10 + [_I] * 11 + [_P], 7),
+    "ssd_bwd": ("k4b", "k4b_ssd_scan_bwd", [_P] * 16 + [_I] * 9 + [_P], 8),
 }
 
 
@@ -171,7 +173,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def c_prefix(name: str) -> str:
-    """The C prefix of library ``name`` (``k1`` .. ``k4``, ``k3b``)."""
+    """The C prefix of library ``name`` (``k1`` .. ``k4``, ``k3b``,
+    ``k4b``)."""
     return _SIGNATURES[name][0]
 
 

@@ -5,13 +5,15 @@ tensor runs the kernel's plain PyTorch version.  There is no other switch
 and no fallback from one to the other.
 
 Each kernel counts its launches (``launch_counts``), so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels.  One count is not a launch:
+``ssd_scan_backward`` counts ``SSDScan``'s backward passes on either
+device, so a CPU run can show that its gradient went through them.
 
 Gradients: attention (K3) is differentiated by ``FlashAttention``, whose
-backward is K3-bwd on the card and its plain twin on the CPU.  The SSD
-scan (K4) has no backward kernel yet: on a CUDA tensor that requires a
-gradient ``ssd_scan`` raises rather than return an output that would drop
-it (ROADMAP.md A12).
+backward is K3-bwd on the card and its plain twin on the CPU; the SSD scan
+(K4) by ``SSDScan``, whose backward is K4-bwd on the card and its plain
+twin on the CPU.  So every family, ssm and hybrid included, trains on the
+card.
 """
 from __future__ import annotations
 
@@ -21,10 +23,16 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import rbf, ref, solver
 from repro_torch.kernels import ssd as _ssd
+from repro_torch.kernels import ssd_bwd as _ssd_bwd
+from repro_torch.kernels.build import LaunchCounter
+
+#: ``SSDScan.backward`` calls on either device (not a kernel launch).
+SSD_BACKWARDS = LaunchCounter("ssd_scan_backward")
 
 COUNTERS = (rbf.LAUNCHES, solver.LAUNCHES, _flash.LAUNCHES, _flash.LAUNCHES_TC,
             _flash.LAUNCHES_F32, _ssd.LAUNCHES, _flash_bwd.LAUNCHES,
-            _flash_bwd.LAUNCHES_TC, _flash_bwd.LAUNCHES_F32)
+            _flash_bwd.LAUNCHES_TC, _flash_bwd.LAUNCHES_F32,
+            _ssd_bwd.LAUNCHES, SSD_BACKWARDS)
 
 
 def reset_launches() -> None:
@@ -111,17 +119,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
+class SSDScan(torch.autograd.Function):
+    """K4 with its gradient, on either device: the forward runs K4 (or its
+    plain version on the CPU) and keeps the inputs, each chunk's cumsum and
+    entering state (K4's scratch; their plain twins on the CPU) and the
+    final state; the backward runs K4-bwd (or its plain twin on the CPU) on
+    them, so the CPU tests exercise the wiring the card runs.  A final
+    state that gets no gradient passes ``None`` (zero) to the backward."""
+
+    @staticmethod
+    def forward(ctx, x, a, bmat, cmat, chunk):
+        fn = _ssd.ssd_passes_cuda if _on_card(x) else ref.ssd_passes
+        y, s_fin, cum, s_prev = fn(x, a, bmat, cmat, chunk)
+        ctx.save_for_backward(x, a, bmat, cmat, cum, s_prev, s_fin)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, s_fin
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, a, bmat, cmat, cum, s_prev, s_fin = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dfinal is not None:
+            dfinal = dfinal.contiguous()
+        fn = _ssd_bwd.ssd_scan_bwd_cuda if _on_card(x) else ref.ssd_scan_bwd
+        dx, da, db, dc = fn(x, a, bmat, cmat, cum, s_prev, s_fin, dy, dfinal,
+                            ctx.chunk)
+        SSD_BACKWARDS.count += 1
+        return dx, da, db, dc, None
+
+
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
              cmat: torch.Tensor, chunk: int = 128
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked Mamba2 SSD scan in the model's layout -> ``(y (b, s, nh, dh),
-    final_state (b, nh, dh, ds))`` (K4).  K4 has no backward kernel: on a
-    CUDA tensor that requires a gradient this raises."""
-    if _on_card(x) and torch.is_grad_enabled() and any(
+    final_state (b, nh, dh, ds))`` (K4), through ``SSDScan`` when an input
+    requires a gradient."""
+    if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, a, bmat, cmat)):
-        raise NotImplementedError(
-            "the SSD scan (K4) has no backward kernel on the card yet "
-            "(ROADMAP.md A12): training an ssm / hybrid model runs on the "
-            "CPU's plain version only")
+        return SSDScan.apply(x, a, bmat, cmat, chunk)
     fn = _ssd.ssd_scan_cuda if _on_card(x) else ref.ssd_scan
     return fn(x, a, bmat, cmat, chunk=chunk)

@@ -370,6 +370,19 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     return torch.cat(ys, dim=1), state
 
 
+def ssd_passes(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+               cmat: torch.Tensor, chunk: int = 128
+               ) -> tuple[torch.Tensor, ...]:
+    """Plain twin of ``ssd.ssd_passes_cuda``: ``ssd_scan``'s ``(y,
+    final_state)``, then each chunk's ``cum`` and entering state from the
+    twins of K4's first two passes -> ``(y, final_state, cum (b, nh, s),
+    s_prev (b, nh, nc, dh, ds))``, what K4-bwd reads."""
+    y, s_fin = ssd_scan(x, a, bmat, cmat, chunk)
+    cum, own = ssd_chunk_states(x, a, bmat, chunk)
+    s_prev, _ = ssd_state_pass(cum, own, chunk)
+    return y, s_fin, cum, s_prev
+
+
 def ssd_chunk_states(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
                      chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of K4's first pass (``ssd_chunk_state_kernel``): each
@@ -440,3 +453,183 @@ def ssd_chunk_scan(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     ecum = torch.exp(cumk).permute(0, 2, 3, 1)            # (b, nc, L, nh)
     y_inter = torch.einsum("bcths,bhcds->bcthd", ck * ecum[..., None], s_prev)
     return (y_intra + y_inter).reshape(b, s, nh, dh)
+
+
+# ---------------------------------------------------------------------------
+# The SSD scan's gradient (K4-bwd)
+# ---------------------------------------------------------------------------
+
+
+def _reverse_cumsum(dcum: torch.Tensor) -> torch.Tensor:
+    """``da_i = sum_{t >= i} dcum_t`` along the last axis, summed in f64
+    and rounded once (``a``'s gradient from ``cum``'s, within a chunk)."""
+    rev = torch.flip(dcum.double(), [-1])
+    return torch.flip(torch.cumsum(rev, -1), [-1]).float()
+
+
+def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                 cmat: torch.Tensor, cum: torch.Tensor, s_prev: torch.Tensor,
+                 s_fin: torch.Tensor, dy: torch.Tensor,
+                 dfinal: torch.Tensor | None, chunk: int = 128
+                 ) -> tuple[torch.Tensor, ...]:
+    """Plain twin of K4-bwd: the gradient of ``ssd_scan`` in closed form,
+    chunk by chunk from the last.
+
+    Inputs as ``ssd_scan``'s, with the forward's ``cum (b, nh, s)`` and
+    entering states ``s_prev (b, nh, nc, dh, ds)`` (``ssd_chunk_states``,
+    ``ssd_state_pass``), its final state ``s_fin``, the output's gradient
+    ``dy (b, s, nh, dh)`` and the final state's ``dfinal`` (``None``: 0).
+    Per chunk and head, with ``G = C B^T``, ``P_tj = dy_t . x_j``,
+    ``D_tj = exp(min(cum_t - cum_j, 0))`` for j <= t (else 0), ``M = G D
+    P`` where ``cum_t - cum_j <= 0`` (the clamp passes no gradient above
+    0), ``T = cum_L``, ``S`` / ``S'`` the states entering / leaving the
+    chunk and ``dS'`` the gradient into ``S'``:
+
+    * ``dx_j = sum_t G_tj D_tj dy_t + e^{T - cum_j} dS' B_j``
+    * ``dB_j = sum_t D_tj P_tj C_t + e^{T - cum_j} dS'^T x_j``
+    * ``dC_t = sum_j D_tj P_tj B_j + e^{cum_t} S^T dy_t``
+    * ``dcum = rowsum(M) - colsum(M) + dy . y_inter - x . dx_inter``, plus
+      ``<dS', S'>`` at the chunk's last step; ``da`` is its reverse
+      cumsum within the chunk (in f64);
+    * ``dS = sum_t e^{cum_t} dy_t C_t^T + e^T dS'``, the next ``dS'``.
+
+    dB and dC are summed over each group's heads.  Returns ``(dx (b, s,
+    nh, dh), da (b, s, nh), dbmat, dcmat (b, s, g, ds))``, all f32.
+    """
+    b, s, nh, dh = x.shape
+    g, ds = bmat.shape[2], bmat.shape[3]
+    rep, nc = nh // g, s // chunk
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    dx, da = torch.empty_like(x), torch.empty_like(a)
+    dbh = torch.empty((b, s, nh, ds), device=x.device)
+    dch = torch.empty_like(dbh)
+    dsn = torch.zeros_like(s_fin) if dfinal is None else dfinal.float()
+    for c in reversed(range(nc)):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xk, dyk = x[:, sl].float(), dy[:, sl].float()      # (b, L, nh, dh)
+        bk = torch.repeat_interleave(bmat[:, sl].float(), rep, dim=2)
+        ck = torch.repeat_interleave(cmat[:, sl].float(), rep, dim=2)
+        cumk = cum[:, :, sl]                                  # (b, nh, L)
+        total = cumk[..., -1]                                 # (b, nh)
+        s_in = s_prev[:, :, c]
+        s_out = s_prev[:, :, c + 1] if c + 1 < nc else s_fin
+        logdec = cumk[..., :, None] - cumk[..., None, :]      # cum_t - cum_j
+        dec = torch.where(causal, torch.exp(torch.clamp(logdec, max=0.0)),
+                          0.0)
+        gmat = torch.einsum("bths,bjhs->bhtj", ck, bk)
+        pmat = torch.einsum("bthd,bjhd->bhtj", dyk, xk)
+        q, r = gmat * dec, pmat * dec
+        m = torch.where(logdec <= 0, gmat * r, 0.0)
+        w = torch.exp(total[..., None] - cumk)                # e^{T - cum_j}
+        ec = torch.exp(cumk)                                  # e^{cum_t}
+        dx_inter = torch.einsum("bhj,bhds,bjhs->bjhd", w, dsn, bk)
+        db_inter = torch.einsum("bhj,bhds,bjhd->bjhs", w, dsn, xk)
+        dc_inter = torch.einsum("bht,bhds,bthd->bths", ec, s_in, dyk)
+        dx[:, sl] = torch.einsum("bhtj,bthd->bjhd", q, dyk) + dx_inter
+        dbh[:, sl] = torch.einsum("bhtj,bths->bjhs", r, ck) + db_inter
+        dch[:, sl] = torch.einsum("bhtj,bjhs->bths", r, bk) + dc_inter
+        dcum = (m.sum(-1) - m.sum(-2)
+                + torch.einsum("bths,bths->bht", ck, dc_inter)
+                - torch.einsum("bjhs,bjhs->bhj", bk, db_inter))
+        dcum[..., -1] += (dsn * s_out).sum((-2, -1))
+        da[:, sl] = _reverse_cumsum(dcum).transpose(1, 2)
+        dsn = torch.einsum("bht,bthd,bths->bhds", ec, dyk, ck) \
+            + torch.exp(total)[..., None, None] * dsn
+    return (dx, da, dbh.reshape(b, s, g, rep, ds).sum(3),
+            dch.reshape(b, s, g, rep, ds).sum(3))
+
+
+def _per_head(m: torch.Tensor, nh: int, chunk: int) -> torch.Tensor:
+    """``(b, s, g, ds)`` -> ``(b, nc, L, nh, ds)``, each head its group's."""
+    b, s, g, ds = m.shape
+    return torch.repeat_interleave(m.float(), nh // g, dim=2).reshape(
+        b, s // chunk, chunk, nh, ds)
+
+
+def ssd_bwd_chunk_states(dy: torch.Tensor, cmat: torch.Tensor,
+                         cum: torch.Tensor, s_prev: torch.Tensor,
+                         chunk: int = 128) -> tuple[torch.Tensor, ...]:
+    """Plain twin of K4-bwd's first pass (``ssd_bwd_chunk_state_kernel``):
+    each chunk's own part of the gradient into the state entering it, ``U
+    = sum_t e^{cum_t} dy_t C_t^T``, and the entering state's part of dC,
+    ``dC_t = e^{cum_t} S^T dy_t``, with its term ``C_t . dC_t`` of dcum.
+
+    Returns ``(u (b, nh, nc, dh, ds), dch (b, s, nh, ds) per head, dcum
+    (b, nh, s))``."""
+    b, s, nh, dh = dy.shape
+    nc = s // chunk
+    dyk = dy.float().reshape(b, nc, chunk, nh, dh)
+    ck = _per_head(cmat, nh, chunk)
+    ec = torch.exp(cum.reshape(b, nh, nc, chunk)).permute(0, 2, 3, 1)
+    u = torch.einsum("bclhd,bclhs->bhcds", dyk, ck * ec[..., None])
+    dch = torch.einsum("bhcds,bclhd->bclhs", s_prev, dyk) * ec[..., None]
+    dcum = torch.einsum("bclhs,bclhs->bhcl", ck, dch)
+    return u, dch.reshape(b, s, nh, -1), dcum.reshape(b, nh, s)
+
+
+def ssd_bwd_state_pass(cum: torch.Tensor, u: torch.Tensor,
+                       dfinal: torch.Tensor | None, chunk: int = 128
+                       ) -> torch.Tensor:
+    """Plain twin of K4-bwd's second pass (``ssd_bwd_state_pass_kernel``):
+    from the last chunk, ``dS' = dfinal`` (0 for ``None``), then ``dS' <-
+    U_c + exp(cum_L of c) dS'`` for the chunk before.  Returns the gradient
+    into the state leaving each chunk, ``(b, nh, nc, dh, ds)``."""
+    b, nh, s = cum.shape
+    total = cum.reshape(b, nh, s // chunk, chunk)[..., -1]
+    r = torch.zeros_like(u[:, :, 0]) if dfinal is None else dfinal.float()
+    out = [None] * u.shape[2]
+    for c in reversed(range(u.shape[2])):
+        out[c] = r
+        r = u[:, :, c] + torch.exp(total[:, :, c])[..., None, None] * r
+    return torch.stack(out, dim=2)
+
+
+def ssd_bwd_chunk(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                  dy: torch.Tensor, cum: torch.Tensor, s_prev: torch.Tensor,
+                  s_fin: torch.Tensor, dsn: torch.Tensor, dch: torch.Tensor,
+                  dcum: torch.Tensor, chunk: int = 128
+                  ) -> tuple[torch.Tensor, ...]:
+    """Plain twin of K4-bwd's third pass (``ssd_bwd_chunk_kernel``), every
+    chunk at once: from the first pass's ``dch`` and ``dcum`` and the
+    second's ``dsn`` (the gradient into each chunk's leaving state), the
+    intra-chunk terms and the leaving state's terms of ``ssd_scan_bwd`` ->
+    ``(dx (b, s, nh, dh), da (b, s, nh), dbh, dch (b, s, nh, ds))``, dB and
+    dC per head."""
+    b, s, nh, dh = x.shape
+    nc = s // chunk
+    xk = x.float().reshape(b, nc, chunk, nh, dh)
+    dyk = dy.float().reshape(b, nc, chunk, nh, dh)
+    bk, ck = _per_head(bmat, nh, chunk), _per_head(cmat, nh, chunk)
+    cumk = cum.reshape(b, nh, nc, chunk)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    logdec = cumk[..., :, None] - cumk[..., None, :]          # cum_t - cum_j
+    dec = torch.where(causal, torch.exp(torch.clamp(logdec, max=0.0)), 0.0)
+    gmat = torch.einsum("bcths,bcjhs->bhctj", ck, bk)
+    r = torch.einsum("bcthd,bcjhd->bhctj", dyk, xk) * dec
+    m = torch.where(logdec <= 0, gmat * r, 0.0)
+    w = torch.exp(cumk[..., -1:] - cumk).permute(0, 2, 3, 1)  # (b, nc, L, nh)
+    dx_inter = torch.einsum("bhcds,bcjhs->bcjhd", dsn, bk) * w[..., None]
+    db_inter = torch.einsum("bhcds,bcjhd->bcjhs", dsn, xk) * w[..., None]
+    dx = torch.einsum("bhctj,bcthd->bcjhd", gmat * dec, dyk) + dx_inter
+    dbh = torch.einsum("bhctj,bcths->bcjhs", r, ck) + db_inter
+    dch = torch.einsum("bhctj,bcjhs->bcths", r, bk) \
+        + dch.reshape(b, nc, chunk, nh, -1)
+    s_out = torch.cat([s_prev[:, :, 1:], s_fin[:, :, None]], dim=2)
+    dcum = (dcum.reshape(b, nh, nc, chunk) + m.sum(-1) - m.sum(-2)
+            - torch.einsum("bcjhs,bcjhs->bhcj", bk, db_inter))
+    dcum[..., -1] += (dsn * s_out).sum((-2, -1))
+    da = _reverse_cumsum(dcum).permute(0, 2, 3, 1).reshape(b, s, nh)
+    return (dx.reshape(b, s, nh, dh), da, dbh.reshape(b, s, nh, -1),
+            dch.reshape(b, s, nh, -1))
+
+
+def ssd_bwd_group_sum(dbh: torch.Tensor, dch: torch.Tensor, g: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K4-bwd's last pass (``ssd_bwd_group_sum_kernel``):
+    the per-head ``dbh, dch (b, s, nh, ds)`` summed over each group's heads
+    -> ``(dbmat, dcmat (b, s, g, ds))``."""
+    b, s, nh, ds = dbh.shape
+    return (dbh.reshape(b, s, g, nh // g, ds).sum(3),
+            dch.reshape(b, s, g, nh // g, ds).sum(3))

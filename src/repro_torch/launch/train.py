@@ -15,9 +15,9 @@ step.  ``main`` returns the losses of the steps it ran.
       --steps 50 --global-batch 8 --seq-len 128 --device cpu
 
 The model trains in its config's compute dtype (bf16 for the full
-configs) with f32 master parameters and AdamW moments.  An ssm / hybrid
-model trains on the CPU only: K4 has no backward kernel on the card yet
-(ROADMAP.md A12).
+configs) with f32 master parameters and AdamW moments (8-bit with
+``--opt8``).  Every family trains on the card: attention's gradient is
+K3-bwd, the SSD scan's K4-bwd (ssm and hybrid models).
 """
 from __future__ import annotations
 

@@ -506,6 +506,29 @@ def test_mirror_k4_dynamic_shared_memory(nh, ds, state, scan):
     assert launches[0].kernel == f"ssd_chunk_state_kernel<64, {ds}>"
 
 
+@pytest.mark.parametrize("nh,ds,state,chunk", [
+    (50, 16, 48_640, 56_000),      # hymba training (dh 64, ds 16, chunk 128)
+    (80, 128, 134_656, 201_152)])  # mamba2 training (ds 128)
+def test_mirror_k4b_dynamic_shared_memory_and_grids(nh, ds, state, chunk):
+    """K4-bwd's four launches at the training microbatch (2, 4096): a CTA
+    per (batch, chunk, head) tile in passes 1 and 3, a thread per state
+    value in the state pass and per (step, group, k) in the group sum."""
+    launches = kernel_budget.k4b_plan(2, 4096, nh, 1, 64, ds, 128)
+    assert [ln.smem for ln in launches] == [state, 0, chunk, 0]
+    assert [ln.grid[0] for ln in launches] == [
+        2 * 32 * nh, 2 * nh * 64 * ds // 256, 2 * 32 * nh,
+        2 * 4096 * ds // 256]
+    assert launches[2].kernel == f"ssd_bwd_chunk_kernel<64, {ds}>"
+    assert kernel_budget.k4b_plan(2, 4096, nh, 1, 64, ds, 128, 1) == \
+        launches[:1]
+    assert kernel_budget.grid_covers(
+        "ssd_bwd", (2, 4096, nh, 1, 64, ds, 128, 0), launches) == []
+    short = dataclasses.replace(launches[3], grid=(launches[3].grid[0] - 1,
+                                                   1, 1))
+    assert kernel_budget.grid_covers(
+        "ssd_bwd", (2, 4096, nh, 1, 64, ds, 128, 0), launches[:3] + [short])
+
+
 @pytest.mark.parametrize("lanes,want", [
     ((3, 7, 35, 399, 4), dict(n_pad=400, chunk=400, fixed_floats=15_328,
                               lanes_fit=32, per_cta=6, groups=6,
@@ -545,9 +568,11 @@ def test_smem_budget_fires_over_the_budget():
     findings, _ = kernel_budget.check_kernels(smem_budget=150_000)
     fired = [f for f in findings if f.rule == "SMEM-BUDGET"]
     assert fired and rules_of(findings) == {"SMEM-BUDGET"}
-    # K2 at har12 (224,448 B) and K4 pass 3 at mamba2 (199,680 B)
+    # K2 at har12 (224,448 B), K4 pass 3 at mamba2 (199,680 B) and K4-bwd
+    # pass 3 at mamba2 (201,152 B)
     assert {f.path for f in fired} == {
-        kernel_budget.SOURCE["solver"], kernel_budget.SOURCE["ssd"]}
+        kernel_budget.SOURCE["solver"], kernel_budget.SOURCE["ssd"],
+        kernel_budget.SOURCE["ssd_bwd"]}
 
 
 def test_grid_covers_fires_on_short_grids_and_unpadded_shapes():
@@ -637,7 +662,8 @@ def test_record_launches_collects_the_wrappers_shapes():
     assert seen == {"kernel_matrix": {(3, 188, 71, 4, 1)}, "solver": set(),
                     "flash_attention": set(),
                     "ssd": {(4, 2048, 50, 1, 64, 16, 128, 0)},
-                    "flash_attention_bwd": {(1, 2, 16, 8, 4096, 4096, 64)}}
+                    "flash_attention_bwd": {(1, 2, 16, 8, 4096, 4096, 64)},
+                    "ssd_bwd": set()}
     assert rbf.LAUNCHES.count == before + 4
     assert rbf.LAUNCHES.shapes is None and ssd.LAUNCHES.shapes is None
     assert flash_attention_bwd.LAUNCHES.shapes is None
@@ -674,6 +700,9 @@ MIRROR_CONSTANTS = {
                         "K3_TC_THREADS": "kTcThreads", "K3_STAGES": "kStages"},
     "ssd": {"K4_THREADS": "kThreads", "K4_MAX_CHUNK": "kMaxChunk",
             "K4_STRIP_LD": "kStripLd"},
+    "ssd_bwd": {"K4B_THREADS": "kThreads", "K4B_MAX_CHUNK": "kMaxChunk",
+                "K4B_BLOCK": "kBlock", "K4B_PAD": "kPad",
+                "K4B_BLOCK_LD": "kBlockLd"},
     "flash_attention_bwd": {"K3B_BLOCK_Q": "kBlockQ",
                             "K3B_BLOCK_K": "kBlockK",
                             "K3B_THREADS": "kThreads",

@@ -9,7 +9,8 @@ head dim the kernel takes (32, 64, 96, 112, 128).  Also: the forward's lse again
 Function's forward bit-equal to the no-grad ``ops.flash_attention``, the
 gradient through remat's recompute, and zero gradients for rows that see
 no key.  The card's kernel is held to the same twin in
-``tests/test_torch_cuda.py``.
+``tests/test_torch_cuda.py``.  Last, the SSD scan's card branch wired
+through ``SSDScan`` (the device check stubbed).
 """
 import jax
 import jax.numpy as jnp
@@ -182,19 +183,45 @@ def test_backward_kernel_wrapper_refuses_what_it_does_not_take():
 
 
 def test_ssd_scan_raises_on_a_card_tensor_that_needs_a_gradient(monkeypatch):
-    """K4 has no backward kernel: on the card, a scan whose input requires
-    a gradient raises instead of dropping it (the device check is stubbed
-    to take the card's branch here)."""
+    """On the card (the device check stubbed to take the card's branch), a
+    scan whose input needs a gradient goes through ``SSDScan``: K4's passes
+    once in the forward, K4-bwd once in the backward, with no fallback to
+    the plain twin, so a K4-bwd that fails raises.  Under ``no_grad`` and
+    on detached inputs the forward alone launches."""
     x = torch.zeros(1, 128, 2, 16, requires_grad=True)
     a = torch.zeros(1, 128, 2)
     bm = torch.zeros(1, 128, 1, 16)
     monkeypatch.setattr(ops, "_on_card", lambda t: True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ops.ssd_scan(x, a, bm, bm)
-    launched = []
-    monkeypatch.setattr(ops._ssd, "ssd_scan_cuda",
-                        lambda *args, **kw: launched.append(1))
+    calls = {"passes": 0, "bwd": 0, "scan": 0}
+
+    def passes(x, a, bmat, cmat, chunk):
+        calls["passes"] += 1
+        return ref.ssd_passes(x, a, bmat, cmat, chunk)
+
+    def bwd(*args):
+        calls["bwd"] += 1
+        return ref.ssd_scan_bwd(*args)
+
+    def scan(*args, **kw):
+        calls["scan"] += 1
+        return ref.ssd_scan(*args, **kw)
+
+    monkeypatch.setattr(ops._ssd, "ssd_passes_cuda", passes)
+    monkeypatch.setattr(ops._ssd_bwd, "ssd_scan_bwd_cuda", bwd)
+    monkeypatch.setattr(ops._ssd, "ssd_scan_cuda", scan)
+    y, _ = ops.ssd_scan(x, a, bm, bm)
+    y.sum().backward()
+    assert calls == {"passes": 1, "bwd": 1, "scan": 0}
+    assert x.grad is not None and x.grad.shape == x.shape
+
+    def launch_failed(*args):
+        raise RuntimeError("k4b launch failed")
+
+    monkeypatch.setattr(ops._ssd_bwd, "ssd_scan_bwd_cuda", launch_failed)
+    y, _ = ops.ssd_scan(x, a, bm, bm)
+    with pytest.raises(RuntimeError, match="k4b"):
+        y.sum().backward()
     with torch.no_grad():
         ops.ssd_scan(x, a, bm, bm)
     ops.ssd_scan(x.detach(), a, bm, bm)
-    assert launched == [1, 1]
+    assert calls == {"passes": 2, "bwd": 1, "scan": 2}

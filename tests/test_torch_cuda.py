@@ -16,7 +16,11 @@ every head dim 32 to 128 and mask kind: f32 max
 twin run in f32 on the same bf16 inputs, lse within 1e-5 of the logits'
 logsumexp; a train step on the card against the same step with the plain
 versions: loss 1e-5 relative, gradients 1e-4 * max(1, max|g|) and
-relative L2 1e-2 per leaf.
+relative L2 1e-2 per leaf.  K4-bwd against its plain twin (and each of
+its four passes) at ds 16 and 128 and padded state widths: each leaf within
+relative L2 1e-4 and max |err| <= 1e-4 * max(1, max|plain|), bit for bit
+twice, its planted fault caught; reduced hymba and mamba2 train steps on
+the card against the plain versions, by the train step's rule.
 """
 import numpy as np
 import pytest
@@ -24,7 +28,7 @@ import torch
 
 from repro_torch.analysis import kernel_budget
 from repro_torch.kernels import (
-    flash_attention, flash_attention_bwd, ops, rbf, ref, solver, ssd,
+    flash_attention, flash_attention_bwd, ops, rbf, ref, solver, ssd, ssd_bwd,
 )
 
 
@@ -344,6 +348,106 @@ def test_k4_padded_sequence(card):
     np.testing.assert_allclose(y.cpu().numpy(), y_r.cpu().numpy(), atol=1e-4)
     np.testing.assert_allclose(s_fin.cpu().numpy(), s_r.cpu().numpy(),
                                atol=1e-4)
+
+
+def _k4b_inputs(seed, b, s, h, dh, g, ds, chunk, a_scale, dev):
+    """K4-bwd's inputs: the scan's, K4's own cum, entering and final states,
+    dy and dfinal."""
+    rng = np.random.RandomState(seed)
+    x, a, bm, cm = (_t(v).to(dev) for v in (
+        rng.randn(b, s, h, dh) * 0.3, -np.abs(rng.randn(b, s, h)) * a_scale,
+        rng.randn(b, s, g, ds) * 0.3, rng.randn(b, s, g, ds) * 0.3))
+    dy, dfin = (_t(v).to(dev) for v in (rng.randn(b, s, h, dh),
+                                        rng.randn(b, h, dh, ds)))
+    _, s_fin, cum, s_prev = ssd.ssd_passes_cuda(x, a, bm, cm, chunk)
+    return x, a, bm, cm, cum, s_prev, s_fin, dy, dfin
+
+
+def _k4b_close(got, want, name):
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-4 * scale, name
+    assert _rel_l2(got, want) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,chunk,a_scale", [(256, 128, 0.3), (512, 64, 3.0),
+                                             (128, 32, 0.3)])
+@pytest.mark.parametrize("dh,g,ds", [(64, 1, 16), (64, 1, 128), (16, 2, 8),
+                                     (64, 2, 5), (16, 1, 24)])
+@pytest.mark.parametrize("dfinal", [True, False])
+def test_k4b_kernel_matches_plain_twin(card, s, chunk, a_scale, dh, g, ds,
+                                       dfinal):
+    """K4-bwd against ``ref.ssd_scan_bwd`` on the same inputs, with and
+    without a final state gradient; two launches bit for bit."""
+    inp = list(_k4b_inputs(ds + s, 2, s, 4, dh, g, ds, chunk, a_scale, card))
+    if not dfinal:
+        inp[-1] = None
+    got = ssd_bwd.ssd_scan_bwd_cuda(*inp, chunk)
+    again = ssd_bwd.ssd_scan_bwd_cuda(*inp, chunk)
+    want = ref.ssd_scan_bwd(*inp, chunk)
+    torch.cuda.synchronize()
+    for name, g_, g2, w in zip(("dx", "da", "dB", "dC"), got, again, want):
+        _k4b_close(g_, w, name)
+        assert torch.equal(g_, g2), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,g,ds", [(64, 1, 16), (64, 1, 128), (16, 2, 5)])
+def test_k4b_passes_match_their_plain_twins(card, dh, g, ds):
+    """Each of K4-bwd's four passes against its plain twin on the kernel's
+    own inputs to it (pass 1 alone with ``chunk_states_only``)."""
+    inp = _k4b_inputs(7, 2, 512, 4, dh, g, ds, 128, 0.3, card)
+    x, a, bm, cm, cum, s_prev, s_fin, dy, dfin = inp
+    one = ssd_bwd.ssd_bwd_passes_cuda(*inp, 128, chunk_states_only=True)
+    full = ssd_bwd.ssd_bwd_passes_cuda(*inp, 128)
+    u, dch, dcum = ref.ssd_bwd_chunk_states(dy, cm, cum, s_prev, 128)
+    dsn = ref.ssd_bwd_state_pass(cum, one[4], dfin, 128)
+    third = ref.ssd_bwd_chunk(x, bm, cm, dy, cum, s_prev, s_fin, full[4],
+                              one[6], one[7], 128)
+    fourth = ref.ssd_bwd_group_sum(full[5], full[6], g)
+    torch.cuda.synchronize()
+    for name, got, want in (("u", one[4], u), ("dch1", one[6], dch),
+                            ("dcum1", one[7], dcum), ("dsn", full[4], dsn),
+                            ("dx", full[0], third[0]),
+                            ("da", full[1], third[1]),
+                            ("dbh", full[5], third[2]),
+                            ("dch", full[6], third[3]),
+                            ("dB", full[2], fourth[0]),
+                            ("dC", full[3], fourth[1])):
+        _k4b_close(got, want, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds", [16, 128])
+def test_k4b_planted_fault_is_caught(card, ds):
+    """Every j block skipping its last t block fails the twin check."""
+    inp = _k4b_inputs(9, 2, 256, 4, 64, 1, ds, 128, 0.3, card)
+    bad = ssd_bwd.ssd_scan_bwd_cuda(*inp, 128,
+                                    fault=ssd_bwd.FAULT_DROP_LAST_T_BLOCK)
+    want = ref.ssd_scan_bwd(*inp, 128)
+    assert max(_rel_l2(g, w) for g, w in zip(bad, want)) > 1e-2
+
+
+@pytest.mark.cuda
+def test_k4b_four_device_launches_per_call(card):
+    """One call is ``ssd_bwd.DEVICE_LAUNCHES`` device kernels, all named
+    ``ssd_bwd_*``, and one counted launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    inp = _k4b_inputs(3, 1, 256, 4, 64, 1, 16, 128, 0.3, card)
+    ssd_bwd.ssd_scan_bwd_cuda(*inp, 128)
+    torch.cuda.synchronize()
+    before = ssd_bwd.LAUNCHES.count
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ssd_bwd.ssd_scan_bwd_cuda(*inp, 128)
+        torch.cuda.synchronize()
+    names = sorted(e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    assert len(names) == ssd_bwd.DEVICE_LAUNCHES == 4, names
+    assert all("ssd_bwd_" in n for n in names), names
+    assert ssd_bwd.LAUNCHES.count == before + 1
 
 
 @pytest.mark.cuda
@@ -869,6 +973,10 @@ BUDGET_THREADS = {"kernel_matrix_kernel": 256, "solver_kernel": 1024,
                   "flash_kernel": 256, "flash_wgmma_kernel": 288,
                   "ssd_chunk_state_kernel": 256, "ssd_state_pass_kernel": 256,
                   "ssd_chunk_scan_kernel": 256, "bwd_dot_kernel": 256,
+                  "ssd_bwd_chunk_state_kernel": 256,
+                  "ssd_bwd_state_pass_kernel": 256,
+                  "ssd_bwd_chunk_kernel": 256,
+                  "ssd_bwd_group_sum_kernel": 256,
                   "bwd_prep_kernel": 256, "bwd_dkv_kernel": 256,
                   "bwd_dq_kernel": 256, "bwd_dkv_wgmma_kernel": 384,
                   "bwd_dq_wgmma_kernel": 288, "bwd_dkv_sum_kernel": 256}
@@ -885,12 +993,15 @@ def test_budget_mirror_equals_library_plan(card, library, label, args):
 
 @pytest.mark.cuda
 def test_budget_mirror_equals_library_plan_at_chunk_states_and_ragged(card):
-    """K4 stopping after pass 1, K1 past the unrolled d, K2 at one lane and
+    """K4 and K4-bwd stopping after pass 1 and at a padded state, K1 past
+    the unrolled d, K2 at one lane and
     at a card-filling grid, K3 at a single ragged q block."""
     sms, optin = kernel_budget.card_limits()
     for library, args in (
             ("ssd", (2, 256, 8, 2, 16, 5, 64, 1)),
             ("ssd", (1, 128, 4, 1, 64, 100, 128, 0)),
+            ("ssd_bwd", (2, 256, 8, 2, 16, 5, 64, 1)),
+            ("ssd_bwd", (1, 128, 4, 1, 64, 100, 128, 0)),
             ("kernel_matrix", (1, 1, 1, 7, 2)),
             ("solver", (1, 1, 1, 17, 3, 0)),
             ("solver", (132, 3, 70, 33, 2, 2)),
@@ -1160,15 +1271,48 @@ def test_train_step_on_card_matches_plain_versions(card, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_ssm_training_on_card_raises(card):
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-2.7b"])
+def test_ssm_training_on_card_matches_plain_versions(card, monkeypatch, arch):
+    """Reduced hymba and mamba2 in f32 (B = 2, S = 200, padded to 256 for
+    the scan; remat "full"): loss and gradients through K3 / K3-bwd and K4
+    / K4-bwd against the same model with the plain versions on the card;
+    every leaf finite and nonzero; K4 twice and K4-bwd once per layer;
+    K4-bwd's planted fault fails the check."""
+    import dataclasses
+    import functools
+
     from repro_torch import configs
-    from repro_torch.models import transformer as tfm
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import step as step_mod
 
-    cfg = configs.get("hymba-1.5b").reduced()
+    cfg = dataclasses.replace(configs.get(arch).reduced(), remat="full")
     state = step_mod.init_train_state(cfg, opt_mod.AdamWConfig(), 0, card)
-    toks = torch.zeros(2, 41, dtype=torch.long, device=card)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tfm.forward_train(cfg, state["params"],
-                          {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    rng = np.random.RandomState(1)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 201)),
+                           device=card)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ops.reset_launches()
+    loss, grads = _train_grads(cfg, state, batch)
+    counts = ops.launch_counts()
+    assert counts["ssd"] == 2 * cfg.n_layers
+    assert counts["ssd_bwd"] == counts["ssd_scan_backward"] == cfg.n_layers
+    for g in grads:
+        assert torch.isfinite(g).all() and g.abs().max() > 0
+
+    with monkeypatch.context() as m:
+        _plain_kernels(m)
+        m.setattr(ssd, "ssd_passes_cuda", ref.ssd_passes)
+        m.setattr(ssd_bwd, "ssd_scan_bwd_cuda", ref.ssd_scan_bwd)
+        loss_p, grads_p = _train_grads(cfg, state, batch)
+    assert abs(loss - loss_p) <= 1e-5 * abs(loss_p)
+    for g, w in zip(grads, grads_p):
+        assert float((g - w).abs().max()) <= 1e-4 * max(
+            1.0, float(w.abs().max()))
+        assert _rel_l2(g, w) <= 1e-2
+
+    with monkeypatch.context() as m:
+        m.setattr(ssd_bwd, "ssd_scan_bwd_cuda", functools.partial(
+            ssd_bwd.ssd_scan_bwd_cuda,
+            fault=ssd_bwd.FAULT_DROP_LAST_T_BLOCK))
+        _, grads_bad = _train_grads(cfg, state, batch)
+    assert max(_rel_l2(g, w) for g, w in zip(grads_bad, grads_p)) > 1e-2

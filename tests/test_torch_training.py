@@ -15,8 +15,10 @@ gradient leaf within 1e-4 * max(1, max|g_ref|), and the parameters after
 one step within 2e-5 wherever |g_ref| > 1e-4.  Elsewhere Adam's first step
 is about ``lr * sign(g)``, and a gradient near 0 may take either sign in
 the two packages, so those entries are held to 2 lr (1 + wd) and counted.
-Then ``remat`` none / full / dots within 1e-6 and ``cast_params_bf16``
-within 2e-2 of the reference's loss.
+The ssm and hybrid layers' scans are differentiated by ``ops.SSDScan`` (its
+plain twin here), one backward pass per layer.  Then ``remat`` none / full
+/ dots within 1e-6 (moe, hybrid, ssm) and ``cast_params_bf16`` within 2e-2
+of the reference's loss.
 """
 import dataclasses
 import functools
@@ -258,8 +260,12 @@ def test_train_step_matches_the_reference(family):
         r_state, {k: jnp.asarray(v) for k, v in batch.items()})
 
     tb = _torch_batch(batch)
+    ops.reset_launches()
     loss, _ = tfm.forward_train(cfg, state["params"], tb)
     loss.backward()
+    # ssm / hybrid layers' scans go through SSDScan (its plain twin here).
+    scans = cfg.n_layers if family in ("ssm", "hybrid") else 0
+    assert ops.launch_counts()["ssd_scan_backward"] == scans
     leaves = reference_leaves(cfg, state["params"])
     r_g = _leaves(r_grads)
     assert len(r_g) == len(leaves)
@@ -286,7 +292,7 @@ def test_train_step_matches_the_reference(family):
     assert loose <= 0.01 * sum(p.size for p in got_p), loose
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid"])
+@pytest.mark.parametrize("family", ["moe", "hybrid", "ssm"])
 def test_remat_policies_give_the_same_gradients(family):
     base = configs.get(FAMILIES[family]).reduced()
     batch = _torch_batch(_tokens_batch(base))
