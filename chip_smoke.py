@@ -196,10 +196,12 @@ Phases, in order; any failure exits nonzero before the result line:
    store.  K4-bwd against its plain twin ``ref.ssd_scan_bwd`` at hymba's
    and mamba2's training microbatch (2, 4096, 50 / 80 heads of 64, ds 16 /
    128, chunk 128), mild and strong decay, with K4's own cum and states:
-   every leaf and each of its four passes within relative L2 1e-4 and
+   every leaf and each of its five passes within relative L2 1e-4 and
    max |err| <= 1e-4 max(1, max |plain|), two launches bit for bit, its
-   planted fault (each 32-row j block skipping its last t block) caught;
-   ms per call beside the bound (``ssd_bwd_ops``) and the twin's.  (b) Full-width 2-layer f32 steps (granite-moe at B = 2, S =
+   planted fault (each 16-row j tile skipping its last t tile) caught, the
+   scratch bytes of a call; ms per call beside the bounds (``ssd_bwd_ops``:
+   split-TF32 products on the tensor cores, and PR 22's f32 count) and the
+   twin's.  (b) Full-width 2-layer f32 steps (granite-moe at B = 2, S =
    1100; phi-3-vision, kimi-k2 with 8 experts and starcoder2 at B = 2, S
    = 600; hymba and mamba2 at B = 2, S = 1100, padded to 1152 for the
    scan): loss and every gradient leaf through the kernels (K3 / K3-bwd,
@@ -248,6 +250,7 @@ sys.path.insert(0, str(ROOT / "src"))
 #: operations/s outside the tensor cores and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 BF16_TC_OPS_PER_S = 989e12
 
 #: The LM serving path: hymba-1.5b at full width, 4 prompts of 2048 tokens,
@@ -2904,16 +2907,22 @@ K4B_SHAPES = {"hymba-1.5b": (0.3, 3.0), "mamba2-2.7b": (0.3, 3.0)}
 K4B_TOL = 1e-4
 
 
-def ssd_bwd_ops(b: int, s: int, nh: int, dh: int, ds: int,
-                chunk: int) -> float:
-    """f32 operations of the scan's gradient, counting only the causal
-    (t, j) pairs: per chunk and head, 3 ds + 2 dh multiply-adds per pair (G
-    = C B^T, P = dy x^T, and the dx, dB, dC products) and one exp, beside 4
-    L dh ds multiply-adds for the state terms (U = sum e^{cum} dy C^T, the
-    entering state's part of dC, the leaving state's of dx and dB)."""
+def ssd_bwd_ops(b: int, s: int, nh: int, dh: int, ds: int, chunk: int,
+                g: int | None = None) -> tuple[float, float]:
+    """Operations of the scan's gradient, counting only the causal (t, j)
+    pairs -> ``(products, all)``: per chunk and head, 2 dh multiply-adds
+    per pair (P = dy x^T and dx) and one exp, 3 ds per pair (G = C B^T and
+    the dB, dC products) and 4 L dh ds multiply-adds for the state terms
+    (U = sum e^{cum} dy C^T, the entering state's part of dC, the leaving
+    state's of dx and dB).  G, dB and dC depend on a head only through
+    the sum over its group of P D: with ``g`` they are counted once per
+    group (the least work), without it once per head (PR 22's count)."""
     pairs = chunk * (chunk + 1) // 2
-    per_chunk = 2 * pairs * (3 * ds + 2 * dh) + pairs + 8 * chunk * dh * ds
-    return float(b * nh * (s // chunk) * per_chunk)
+    per_head = 2 * pairs * 2 * dh + 8 * chunk * dh * ds
+    per_ds = 2 * pairs * 3 * ds
+    n_ds = nh if g is None else g
+    prods = float(b * (s // chunk) * (nh * per_head + n_ds * per_ds))
+    return prods, prods + b * (s // chunk) * nh * pairs
 
 
 def k4b_inputs(dev, arch: str, a_scale: float, b: int = 2, s: int = 4096):
@@ -2940,16 +2949,44 @@ def k4b_inputs(dev, arch: str, a_scale: float, b: int = 2, s: int = 4096):
     return x, a, bm, cm, cum, s_prev, s_fin, dy, dfin
 
 
+def k4b_pass_pairs(inp, chunk: int = 128) -> list:
+    """Each of K4-bwd's five passes against its plain twin on the kernel's
+    own inputs to it (a call stopped after that pass): (name, kernel,
+    twin) triples."""
+    from repro_torch.kernels import ref, ssd_bwd
+
+    x, a, bm, cm, cum, s_prev, s_fin, dy, dfin = inp
+    one, two, three, four, five = (
+        ssd_bwd.ssd_bwd_passes_cuda(*inp, chunk, passes=n)
+        for n in range(1, ssd_bwd.DEVICE_LAUNCHES + 1))
+    u, dcp, dcum = ref.ssd_bwd_chunk_states(dy, cm, cum, s_prev, chunk)
+    dsn = ref.ssd_bwd_state_pass(cum, one[4], dfin, chunk)
+    dx3, dcum3, dbp3, dcp3 = ref.ssd_bwd_chunk(x, bm, cm, dy, cum, one[5],
+                                               one[7], chunk)
+    dx4, da4, dbp4 = ref.ssd_bwd_state_terms(x, bm, cum, s_prev, s_fin,
+                                             two[4], three[0], three[5],
+                                             three[6], chunk)
+    db5, dc5 = ref.ssd_bwd_slice_sum(four[6], four[7])
+    return [("pass1_u", one[4], u), ("pass1_dcp", one[7], dcp),
+            ("pass1_dcum", one[5], dcum), ("pass2_dstate", two[4], dsn),
+            ("pass3_dx", three[0], dx3), ("pass3_dcum", three[5], dcum3),
+            ("pass3_dbp", three[6], dbp3), ("pass3_dcp", three[7], dcp3),
+            ("pass4_dx", four[0], dx4), ("pass4_da", four[1], da4),
+            ("pass4_dbp", four[6], dbp4), ("pass5_db", five[2], db5),
+            ("pass5_dc", five[3], dc5)]
+
+
 def check_k4_bwd(dev) -> list:
     """Phase 14 (a): K4-bwd against its plain twin ``ref.ssd_scan_bwd`` at
     hymba's and mamba2's training microbatch, chunk 128, mild and strong
     decay, on the same inputs (K4's own cum and states): every leaf within
     relative L2 ``K4B_TOL`` and max |err| <= ``K4B_TOL`` max(1, max
-    |plain|); each of the four passes against its plain twin on the
+    |plain|); each of the five passes against its plain twin on the
     kernel's own inputs to it; two launches bit for bit; the planted fault
-    (each j block skipping its last t block) caught; ms per call beside the bound and
-    the plain twin's ms (mild decay).  No single PyTorch call computes the
-    scan's gradient, so ``library_ms`` is null."""
+    (each j tile skipping its last t tile) caught; the scratch bytes of a
+    call; ms per call beside the bounds and the plain twin's ms (mild
+    decay).  No single PyTorch call computes the scan's gradient, so
+    ``library_ms`` is null."""
     import torch
 
     from repro_torch.kernels import ref, ssd_bwd
@@ -2968,24 +3005,8 @@ def check_k4_bwd(dev) -> list:
 
             got, again, want = run(), run(), plain()
             bad = run(ssd_bwd.FAULT_DROP_LAST_T_BLOCK)
-            # Each pass on the kernel's own inputs to it.
-            one = ssd_bwd.ssd_bwd_passes_cuda(*inp, 128,
-                                              chunk_states_only=True)
-            full = ssd_bwd.ssd_bwd_passes_cuda(*inp, 128)
-            u_p, dch_p, dcum_p = ref.ssd_bwd_chunk_states(dy, cm, cum,
-                                                          s_prev, 128)
-            dsn_p = ref.ssd_bwd_state_pass(cum, one[4], dfin, 128)
-            third_p = ref.ssd_bwd_chunk(x, bm, cm, dy, cum, s_prev, s_fin,
-                                        full[4], one[6], one[7], 128)
-            fourth_p = ref.ssd_bwd_group_sum(full[5], full[6], bm.shape[2])
+            passes = {name: (g, w) for name, g, w in k4b_pass_pairs(inp)}
             torch.cuda.synchronize()
-            passes = {"pass1_u": (one[4], u_p), "pass1_dc": (one[6], dch_p),
-                      "pass1_dcum": (one[7], dcum_p),
-                      "pass2_dstate": (full[4], dsn_p),
-                      **{f"pass3_{n}": (full[i], w) for n, i, w in zip(
-                          ("dx", "da", "dbh", "dch"), (0, 1, 5, 6), third_p)},
-                      **{f"pass4_{n}": (full[i], w) for n, i, w in zip(
-                          ("db", "dc"), (2, 3), fourth_p)}}
             errs, fault_caught = {}, False
             for name, (g, w) in [(f"d{n}", (g, w)) for n, g, w in zip(
                     ("x", "a", "bmat", "cmat"), got, want)] + list(
@@ -3006,29 +3027,41 @@ def check_k4_bwd(dev) -> list:
                 raise AssertionError(f"K4-bwd {arch} a x {a_scale}: the "
                                      "check passed the planted fault")
             b, s, nh, dh = x.shape
-            ds = bm.shape[3]
-            row = dict(arch=arch, a_scale=a_scale, shape=[b, s, nh, dh,
-                                                          bm.shape[2], ds],
+            g, ds = bm.shape[2], bm.shape[3]
+            row = dict(arch=arch, a_scale=a_scale, shape=[b, s, nh, dh, g,
+                                                          ds],
                        chunk=128, dfinal=True, errors=errs,
                        max_abs_err=max(errs[f"d{n}"]["max_abs_err"]
                                        for n in ("x", "a", "bmat", "cmat")),
                        rel_l2=max(errs[f"d{n}"]["rel_l2"]
                                   for n in ("x", "a", "bmat", "cmat")),
                        tolerance=K4B_TOL, deterministic=True,
-                       planted_fault_caught=True)
+                       planted_fault_caught=True,
+                       scratch_bytes=ssd_bwd.scratch_bytes(b, s, nh, g, dh,
+                                                         ds))
             if a_scale == scales[0]:
                 n_bytes = 4 * (3 * x.numel() + 2 * cum.numel()
                                + 4 * bm.numel() + s_prev.numel()
                                + 2 * s_fin.numel())
-                bnd, by = bound_ms(n_bytes, ssd_bwd_ops(b, s, nh, dh, ds,
-                                                        128))
+                _, ops_head = ssd_bwd_ops(b, s, nh, dh, ds, 128)
+                prods, ops_group = ssd_bwd_ops(b, s, nh, dh, ds, 128, g)
+                bnd, by = bound_ms(n_bytes, 3 * prods, TF32_OPS_PER_S)
                 row.update(ms=cuda_ms(run, reps=10),
                            plain_ms=cuda_ms(plain, reps=2, warmup=1),
-                           library_ms=None, bound_ms=bnd, bound_by=by)
+                           library_ms=None, bound_ms=bnd, bound_by=by,
+                           bound_f32_ms=bound_ms(n_bytes, ops_head)[0],
+                           bound_f32_group_ms=bound_ms(n_bytes,
+                                                       ops_group)[0],
+                           bound_note="bound_ms: 3 TF32 products each at "
+                                      "495 TFLOP/s, G / dB / dC once per "
+                                      "group, or the bytes; bound_f32_ms: "
+                                      "PR 22's f32 count at 67 TFLOP/s; "
+                                      "bound_f32_group_ms: that count with "
+                                      "G / dB / dC once per group")
             rows.append(row)
             log("K4-BWD", json.dumps(row))
             del inp, x, a, bm, cm, cum, s_prev, s_fin, dy, dfin, got, again
-            del want, bad, one, full, third_p, fourth_p, passes
+            del want, bad, passes
             torch.cuda.empty_cache()
     return rows
 
@@ -3761,6 +3794,43 @@ def full_width_entries(dev, fits: dict, har12, fleet) -> list:
     return entries
 
 
+def k4b_tensor_cores() -> dict:
+    """Tensor-core instructions (``HMMA`` / ``HGMMA``) of each K4-bwd
+    kernel instance in the built library's SASS (``cuobjdump -sass``):
+    every instance of the three passes that compute products must have
+    some, the state pass and the slice sum none."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+
+    lib = build.build_all()["ssd_bwd"]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(
+                r"(ssd_bwd_[a-z_]+?_kernel)(?:ILi(\d+)ELi(\d+)E)?", line)
+            name = None if m is None else (
+                f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m.group(2)
+                else m.group(1))
+            if name is not None:
+                counts.setdefault(name, 0)
+        elif name is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    products = {k: v for k, v in counts.items()
+                if not k.startswith(("ssd_bwd_state_pass",
+                                     "ssd_bwd_slice_sum"))}
+    if len(products) != 30 or min(products.values()) <= 0:
+        raise AssertionError(f"K4-bwd instances without tensor-core "
+                             f"instructions: {counts}")
+    log("K4-BWD-SASS", json.dumps(counts))
+    return counts
+
+
 def static_analysis_phase(dev, recorded: dict, fits: dict, har12,
                           fleet) -> dict:
     """Phase 13: the budget pass on every recorded launch, the dispatch
@@ -3803,7 +3873,8 @@ def static_analysis_phase(dev, recorded: dict, fits: dict, har12,
     if cli.returncode != 0:
         log(cli.stdout[-4000:], cli.stderr[-4000:])
         raise AssertionError("the analyzer's gate failed on the card")
-    return dict(budgets=budgets, dispatch=rows, cli_summary=summary)
+    return dict(budgets=budgets, dispatch=rows, cli_summary=summary,
+                k4b_tensor_cores=k4b_tensor_cores())
 
 
 def main() -> int:
@@ -4077,11 +4148,14 @@ def main() -> int:
              replaces_note="none: K4's gradient; the reference "
                            "differentiates its jnp ssd_chunked "
                            "(src/repro/models/ssm.py:74)",
-             design="K4's three passes in reverse (each tile's own state "
-                    "gradient, the reverse state pass, each tile's dx, da "
-                    "and per-head dB / dC in 32 x 32 blocks of (t, j)), "
-                    "then dB / dC summed over each group's heads; f32 on "
-                    "the CUDA cores, no atomics; 4 device launches per call",
+             design="split-TF32 products on the tensor cores "
+                    "(mma.sync.m16n8k8, three TF32 products each); a CTA "
+                    "per (batch, chunk, slice of <= 8 heads of a group), "
+                    "operands by cp.async into a two-stage ring, dB / dC "
+                    "summed over the slice on chip (no per-head scratch); "
+                    "chunk states, reverse state pass, intra-chunk terms, "
+                    "state terms with da, slice sum: 5 device launches per "
+                    "call, no atomics",
              launches=sum(k4b_paths.values()), launches_by_path=k4b_paths,
              max_abs_err=max(r["max_abs_err"] for r in training["k4_bwd"]),
              rel_l2=max(r["rel_l2"] for r in training["k4_bwd"]),
@@ -4092,8 +4166,10 @@ def main() -> int:
                           "gradient",
              shape=k4b[0]["shape"],
              shapes={r["arch"]: {key: r[key] for key in (
-                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "bound_f32_ms", "bound_f32_group_ms", "scratch_bytes")}
                  for r in k4b},
+             tensor_core_instructions=analysis["k4b_tensor_cores"],
              device_ms_per_step={arch: r["traced_last_step"].get(
                  "device_ms", {}).get("K4-bwd", "not measured")
                  for arch, r in training["ssm"].items()}),

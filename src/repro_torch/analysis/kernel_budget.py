@@ -19,8 +19,9 @@ of every kernel instance at every shape, with no card and no ``nvcc``:
 * K3-bwd ``flash_attention_bwd.cu``: f32, the D pass, then
   ``dkv_smem_floats`` / ``dq_smem_floats``; bf16, the lse / D pre-pass,
   then ``BwdLayout<DH>::kDkvSmem`` / ``kDqSmem``;
-* K4-bwd ``ssd_bwd.cu``: ``state_smem`` / ``chunk_smem``, the state pass
-  and the group sum.
+* K4-bwd ``ssd_bwd.cu``: ``StateLayout`` / ``ChunkLayout`` /
+  ``TermsLayout<DH, DS>::floats``, a CTA per (batch, chunk, slice of a
+  group's heads), the state pass and the slice sum.
 
 Each library also exports a plan query that returns the launches its own
 host code would make (``csrc/budget.cuh``).  On a card the pass holds the
@@ -73,7 +74,7 @@ LIBRARIES = ("kernel_matrix", "solver", "flash_attention", "ssd",
 SOURCE = {lib: f"{CSRC}/{lib}.cu" for lib in LIBRARIES}
 #: Ints per launch in a plan query's output, launches per call at most.
 PLAN_INTS = 8
-MAX_LAUNCHES = 4
+MAX_LAUNCHES = 5
 ATTR_INTS = 10
 
 
@@ -279,53 +280,72 @@ def k4_plan(b: int, s: int, nh: int, g: int, dh: int, ds: int, chunk: int,
 # K4-bwd: ssd_bwd.cu plan<DH, DS>()
 # ---------------------------------------------------------------------------
 
-K4B_THREADS, K4B_MAX_CHUNK, K4B_BLOCK, K4B_PAD = 256, 128, 32, 4
-K4B_BLOCK_LD = K4B_BLOCK + 1
+K4B_THREADS, K4B_MAX_CHUNK, K4B_TILE, K4B_PAD = 256, 128, 16, 4
+K4B_MAX_SLICE = 8
+K4B_LAUNCHES = 5
+
+
+def k4b_slices(rep: int) -> tuple[int, int]:
+    """``slices()``: (heads per slice, slices) of a group of ``rep``
+    heads, the fewest slices of at most ``K4B_MAX_SLICE``."""
+    n = -(-rep // K4B_MAX_SLICE)
+    per = -(-rep // n)
+    return per, -(-rep // per)
 
 
 def k4b_state_smem(dh: int, ds_pad: int, chunk: int) -> int:
-    """Pass 1's dynamic shared memory (``state_smem``): dy, C e^{cum}, the
-    entering state and e^{cum}."""
-    return 4 * (chunk * (dh + K4B_PAD + ds_pad + 1) + dh * (ds_pad + K4B_PAD))
+    """Pass 1's dynamic shared memory (``StateLayout``): C, the row dots,
+    and a ring of two stages of dy, S and cum."""
+    stage = chunk * (dh + K4B_PAD) + dh * (ds_pad + K4B_PAD) + chunk
+    return 4 * (chunk * (ds_pad + K4B_PAD) + 4 * chunk + 2 * stage)
 
 
 def k4b_chunk_smem(dh: int, ds_pad: int, chunk: int) -> int:
-    """Pass 3's dynamic shared memory (``chunk_smem``): dS' and its
-    transpose, the x / B / dy / C blocks, the three 32 x 32 blocks, the
-    chunk's dC, cum and dcum, and the reductions' scratch."""
-    ld_x, ld_b = dh + K4B_PAD, ds_pad + K4B_PAD
-    return 8 * (K4B_MAX_CHUNK // 32) + 4 * (
-        dh * ld_b + ds_pad * ld_x + 2 * K4B_BLOCK * (ld_x + ld_b)
-        + 3 * K4B_BLOCK * K4B_BLOCK_LD + chunk * (ld_b + 2)
-        + K4B_THREADS // WARP)
+    """Pass 3's dynamic shared memory (``ChunkLayout``): G / R_s with
+    R_s's diagonal, the per-warp dcum rows, and the ring's region (two
+    stages of x, dy and cum, or B and C)."""
+    ring = max(2 * (2 * chunk * (dh + K4B_PAD) + chunk),
+               2 * chunk * (ds_pad + K4B_PAD))
+    return 4 * (chunk * (chunk + K4B_PAD) + chunk
+                + K4B_THREADS // WARP * chunk + ring)
+
+
+def k4b_terms_smem(dh: int, ds_pad: int, chunk: int) -> int:
+    """Pass 4's dynamic shared memory (``TermsLayout``): the f64 scan's
+    warp sums, B, the row dots, e^{T - cum}, dcum, the reduction, and a
+    ring of two stages of x, dS' and cum."""
+    stage = chunk * (dh + K4B_PAD) + dh * (ds_pad + K4B_PAD) + chunk
+    return 4 * (2 * (K4B_MAX_CHUNK // 32) + chunk * (ds_pad + K4B_PAD)
+                + 6 * chunk + K4B_THREADS // WARP + 2 * stage)
 
 
 def k4b_plan(b: int, s: int, nh: int, g: int, dh: int, ds: int, chunk: int,
-             chunk_states_only: int = 0) -> list[Launch]:
+             stop: int = 0) -> list[Launch]:
     """K4-bwd's launches for x (b, s, nh, dh), B / C (b, s, g, ds): chunk
-    states, state pass, chunk, group sum (the first alone with
-    ``chunk_states_only``)."""
+    states, state pass, chunk, state terms, slice sum (the first ``stop``
+    of them when 0 < stop < 5)."""
     if b <= 0 or nh <= 0:
         return []
     if g <= 0 or nh % g or not 0 < ds <= K4_DS_WIDTHS[-1] or chunk <= 0 \
-            or chunk % K4B_BLOCK or chunk > K4B_MAX_CHUNK or s <= 0 \
+            or chunk % 32 or chunk > K4B_MAX_CHUNK or s <= 0 \
             or s % chunk or dh not in K4_HEAD_DIMS:
         raise ValueError(f"K4-bwd takes no (s {s}, g {g}, dh {dh}, ds {ds}, "
                          f"chunk {chunk})")
     w = k4_padded_ds(ds)
-    tiles = b * (s // chunk) * nh
+    ctas = b * (s // chunk) * g * k4b_slices(nh // g)[1]
     blk = (K4B_THREADS, 1, 1)
-    out = [Launch(f"ssd_bwd_chunk_state_kernel<{dh}, {w}>", (tiles, 1, 1),
-                  blk, k4b_state_smem(dh, w, chunk))]
-    if chunk_states_only:
-        return out
-    return out + [
+    out = [
+        Launch(f"ssd_bwd_chunk_state_kernel<{dh}, {w}>", (ctas, 1, 1), blk,
+               k4b_state_smem(dh, w, chunk)),
         Launch("ssd_bwd_state_pass_kernel",
                (_cdiv(b * nh * dh * ds, K4B_THREADS), 1, 1), blk, 0),
-        Launch(f"ssd_bwd_chunk_kernel<{dh}, {w}>", (tiles, 1, 1), blk,
+        Launch(f"ssd_bwd_chunk_kernel<{dh}, {w}>", (ctas, 1, 1), blk,
                k4b_chunk_smem(dh, w, chunk)),
-        Launch("ssd_bwd_group_sum_kernel",
+        Launch(f"ssd_bwd_state_terms_kernel<{dh}, {w}>", (ctas, 1, 1), blk,
+               k4b_terms_smem(dh, w, chunk)),
+        Launch("ssd_bwd_slice_sum_kernel",
                (_cdiv(b * s * g * ds, K4B_THREADS), 1, 1), blk, 0)]
+    return out[:stop] if 0 < stop < K4B_LAUNCHES else out
 
 
 # ---------------------------------------------------------------------------
@@ -620,16 +640,24 @@ def grid_covers(library: str, args: tuple, launches: list[Launch]
                     bad.append(f"state pass grid {ln.grid} does not cover "
                                f"{b * nh * dh * ds} state values")
                 continue
-            if ln.kernel == "ssd_bwd_group_sum_kernel":
+            if ln.kernel == "ssd_bwd_slice_sum_kernel":
                 if ln.grid[0] * K4B_THREADS < b * s * g * ds:
-                    bad.append(f"group sum grid {ln.grid} does not cover "
+                    bad.append(f"slice sum grid {ln.grid} does not cover "
                                f"{b * s * g * ds} values")
                 continue
             if not ln.kernel.endswith(f", {w}>") or w < ds:
                 bad.append(f"{ln.kernel}: ds {ds} not padded to {w}")
-            if ln.grid[0] != tiles:
-                bad.append(f"{ln.kernel}: grid {ln.grid} is not the {tiles} "
-                           f"(batch, chunk, head) tiles")
+            if library == "ssd_bwd":
+                per, n = k4b_slices(nh // g)
+                want, what = b * (s // chunk) * g * n, "(batch, chunk, slice)"
+                if per * n < nh // g or per > K4B_MAX_SLICE:
+                    bad.append(f"{n} slices of {per} heads do not cover a "
+                               f"group's {nh // g}")
+            else:
+                want, what = tiles, "(batch, chunk, head)"
+            if ln.grid[0] != want:
+                bad.append(f"{ln.kernel}: grid {ln.grid} is not the {want} "
+                           f"{what} tiles")
     return bad
 
 

@@ -464,7 +464,7 @@ def _reverse_cumsum(dcum: torch.Tensor) -> torch.Tensor:
     """``da_i = sum_{t >= i} dcum_t`` along the last axis, summed in f64
     and rounded once (``a``'s gradient from ``cum``'s, within a chunk)."""
     rev = torch.flip(dcum.double(), [-1])
-    return torch.flip(torch.cumsum(rev, -1), [-1]).float()
+    return torch.flip(torch.cumsum(rev, -1), [-1]).to(dcum.dtype)
 
 
 def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
@@ -540,11 +540,38 @@ def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
             dch.reshape(b, s, g, rep, ds).sum(3))
 
 
-def _per_head(m: torch.Tensor, nh: int, chunk: int) -> torch.Tensor:
-    """``(b, s, g, ds)`` -> ``(b, nc, L, nh, ds)``, each head its group's."""
-    b, s, g, ds = m.shape
-    return torch.repeat_interleave(m.float(), nh // g, dim=2).reshape(
-        b, s // chunk, chunk, nh, ds)
+#: Heads of one group that a CTA of K4-bwd's per-slice passes owns at most;
+#: the hand kernel's ``kMaxSlice`` (``csrc/ssd_bwd.cu``) is the same
+#: constant.
+SSD_BWD_SLICE = 8
+
+
+def ssd_bwd_slices(rep: int) -> tuple[int, int]:
+    """K4-bwd's head slices of a group of ``rep`` heads -> ``(heads per
+    slice, slices)``: the fewest slices of at most ``SSD_BWD_SLICE`` heads,
+    every one full but the last."""
+    n = -(-rep // SSD_BWD_SLICE)
+    per = -(-rep // n)
+    return per, -(-rep // per)
+
+
+def _by_slice(t: torch.Tensor, g: int, dim: int) -> torch.Tensor:
+    """``t`` summed over each slice's heads along ``dim`` (nh long) -> that
+    axis replaced by ``(g, slices)``; the ragged last slice has fewer."""
+    rep = t.shape[dim] // g
+    per, n = ssd_bwd_slices(rep)
+    t = t.unflatten(dim, (g, rep))
+    pad = n * per - rep
+    if pad:
+        zeros = list(t.shape)
+        zeros[dim + 1] = pad
+        t = torch.cat([t, t.new_zeros(zeros)], dim=dim + 1)
+    return t.unflatten(dim + 1, (n, per)).sum(dim + 2)
+
+
+def _chunks(m: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``(b, s, k, w)`` -> ``(b, nc, L, k, w)``."""
+    return m.unflatten(1, (m.shape[1] // chunk, chunk))
 
 
 def ssd_bwd_chunk_states(dy: torch.Tensor, cmat: torch.Tensor,
@@ -552,20 +579,22 @@ def ssd_bwd_chunk_states(dy: torch.Tensor, cmat: torch.Tensor,
                          chunk: int = 128) -> tuple[torch.Tensor, ...]:
     """Plain twin of K4-bwd's first pass (``ssd_bwd_chunk_state_kernel``):
     each chunk's own part of the gradient into the state entering it, ``U
-    = sum_t e^{cum_t} dy_t C_t^T``, and the entering state's part of dC,
-    ``dC_t = e^{cum_t} S^T dy_t``, with its term ``C_t . dC_t`` of dcum.
+    = sum_t (e^{cum_t} dy_t) C_t^T``, the entering state's part of dC,
+    ``e^{cum_t} S^T dy_t``, summed over each slice of a group's heads
+    (``ssd_bwd_slices``), and its term ``C_t . dC_t`` of dcum per head.
 
-    Returns ``(u (b, nh, nc, dh, ds), dch (b, s, nh, ds) per head, dcum
-    (b, nh, s))``."""
+    Returns ``(u (b, nh, nc, dh, ds), dcp (b, s, g, slices, ds), dcum (b,
+    nh, s))``.  Every product is a tensor-core product of the kernel (a
+    two-operand ``einsum``); the dots run on its CUDA cores."""
     b, s, nh, dh = dy.shape
-    nc = s // chunk
-    dyk = dy.float().reshape(b, nc, chunk, nh, dh)
-    ck = _per_head(cmat, nh, chunk)
-    ec = torch.exp(cum.reshape(b, nh, nc, chunk)).permute(0, 2, 3, 1)
-    u = torch.einsum("bclhd,bclhs->bhcds", dyk, ck * ec[..., None])
-    dch = torch.einsum("bhcds,bclhd->bclhs", s_prev, dyk) * ec[..., None]
-    dcum = torch.einsum("bclhs,bclhs->bhcl", ck, dch)
-    return u, dch.reshape(b, s, nh, -1), dcum.reshape(b, nh, s)
+    g = cmat.shape[2]
+    dyk, ck = _chunks(dy, chunk), _chunks(cmat, chunk)
+    ckh = torch.repeat_interleave(ck, nh // g, dim=3)     # (b, nc, L, nh, ds)
+    ec = torch.exp(cum.unflatten(2, (s // chunk, chunk))).permute(0, 2, 3, 1)
+    u = torch.einsum("bclhd,bclhs->bhcds", dyk * ec[..., None], ckh)
+    dci = torch.einsum("bclhd,bhcds->bclhs", dyk, s_prev) * ec[..., None]
+    dcum = (ckh * dci).sum(-1).permute(0, 3, 1, 2).reshape(b, nh, s)
+    return u, _by_slice(dci, g, 3).flatten(1, 2), dcum
 
 
 def ssd_bwd_state_pass(cum: torch.Tensor, u: torch.Tensor,
@@ -577,7 +606,7 @@ def ssd_bwd_state_pass(cum: torch.Tensor, u: torch.Tensor,
     into the state leaving each chunk, ``(b, nh, nc, dh, ds)``."""
     b, nh, s = cum.shape
     total = cum.reshape(b, nh, s // chunk, chunk)[..., -1]
-    r = torch.zeros_like(u[:, :, 0]) if dfinal is None else dfinal.float()
+    r = torch.zeros_like(u[:, :, 0]) if dfinal is None else dfinal.to(u)
     out = [None] * u.shape[2]
     for c in reversed(range(u.shape[2])):
         out[c] = r
@@ -586,50 +615,75 @@ def ssd_bwd_state_pass(cum: torch.Tensor, u: torch.Tensor,
 
 
 def ssd_bwd_chunk(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
-                  dy: torch.Tensor, cum: torch.Tensor, s_prev: torch.Tensor,
-                  s_fin: torch.Tensor, dsn: torch.Tensor, dch: torch.Tensor,
-                  dcum: torch.Tensor, chunk: int = 128
+                  dy: torch.Tensor, cum: torch.Tensor, dcum: torch.Tensor,
+                  dcp: torch.Tensor, chunk: int = 128
                   ) -> tuple[torch.Tensor, ...]:
-    """Plain twin of K4-bwd's third pass (``ssd_bwd_chunk_kernel``), every
-    chunk at once: from the first pass's ``dch`` and ``dcum`` and the
-    second's ``dsn`` (the gradient into each chunk's leaving state), the
-    intra-chunk terms and the leaving state's terms of ``ssd_scan_bwd`` ->
-    ``(dx (b, s, nh, dh), da (b, s, nh), dbh, dch (b, s, nh, ds))``, dB and
-    dC per head."""
+    """Plain twin of K4-bwd's third pass (``ssd_bwd_chunk_kernel``), the
+    intra-chunk terms, every chunk at once.  Per head, ``G = C B^T`` (once
+    per group), ``P_tj = dy_t . x_j``, ``R = P D``, ``M = G R`` where
+    ``cum_t - cum_j <= 0``; then ``dx_j = sum_t G_tj D_tj dy_t``, dcum +=
+    ``rowsum(M) - colsum(M)``, and with ``R_s`` the sum of R over a
+    slice's heads, the slice's ``dB = R_s^T C`` and dC += ``R_s B``.
+
+    ``dcum`` and ``dcp`` are the first pass's.  Returns ``(dx (b, s, nh,
+    dh), dcum (b, nh, s), dbp, dcp (b, s, g, slices, ds))``."""
     b, s, nh, dh = x.shape
-    nc = s // chunk
-    xk = x.float().reshape(b, nc, chunk, nh, dh)
-    dyk = dy.float().reshape(b, nc, chunk, nh, dh)
-    bk, ck = _per_head(bmat, nh, chunk), _per_head(cmat, nh, chunk)
-    cumk = cum.reshape(b, nh, nc, chunk)
+    g = bmat.shape[2]
+    xk, dyk = _chunks(x, chunk), _chunks(dy, chunk)
+    bk, ck = _chunks(bmat, chunk), _chunks(cmat, chunk)
+    cumk = cum.unflatten(2, (s // chunk, chunk))              # (b, nh, nc, L)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=x.device))
     logdec = cumk[..., :, None] - cumk[..., None, :]          # cum_t - cum_j
     dec = torch.where(causal, torch.exp(torch.clamp(logdec, max=0.0)), 0.0)
-    gmat = torch.einsum("bcths,bcjhs->bhctj", ck, bk)
+    gmat = torch.einsum("bctks,bcjks->bkctj", ck, bk)         # per group
+    gmat = torch.repeat_interleave(gmat, nh // g, dim=1)
     r = torch.einsum("bcthd,bcjhd->bhctj", dyk, xk) * dec
     m = torch.where(logdec <= 0, gmat * r, 0.0)
+    dx = torch.einsum("bhctj,bcthd->bcjhd", gmat * dec, dyk)
+    rs = _by_slice(r, g, 1)                                   # (b, g, n, ...)
+    dbp = torch.einsum("bknctj,bctks->bcjkns", rs, ck)
+    dcp = dcp + torch.einsum("bknctj,bcjks->bctkns", rs, bk).flatten(1, 2)
+    dcum = dcum + (m.sum(-1) - m.sum(-2)).flatten(2)
+    return dx.reshape(b, s, nh, dh), dcum, dbp.flatten(1, 2), dcp
+
+
+def ssd_bwd_state_terms(x: torch.Tensor, bmat: torch.Tensor,
+                        cum: torch.Tensor, s_prev: torch.Tensor,
+                        s_fin: torch.Tensor, dsn: torch.Tensor,
+                        dx: torch.Tensor, dcum: torch.Tensor,
+                        dbp: torch.Tensor, chunk: int = 128
+                        ) -> tuple[torch.Tensor, ...]:
+    """Plain twin of K4-bwd's fourth pass (``ssd_bwd_state_terms_kernel``):
+    the leaving state's terms, from the second pass's ``dsn`` (the
+    gradient into each chunk's leaving state ``S'``), then da.  Per head,
+    with ``w_j = e^{T - cum_j}``: dx += ``w_j dS' B_j``, the slice's dB +=
+    ``(w_j x_j) dS'`` summed over its heads, dcum -= ``x_j . (w_j dS'
+    B_j)`` and += ``<dS', S'>`` at the chunk's last step; ``da`` is dcum's
+    reverse cumsum within the chunk (in f64).
+
+    ``dx``, ``dcum`` and ``dbp`` are the third pass's.  Returns ``(dx (b,
+    s, nh, dh), da (b, s, nh), dbp (b, s, g, slices, ds))``."""
+    b, s, nh, dh = x.shape
+    g = bmat.shape[2]
+    xk = _chunks(x, chunk)
+    bkh = torch.repeat_interleave(_chunks(bmat, chunk), nh // g, dim=3)
+    cumk = cum.unflatten(2, (s // chunk, chunk))              # (b, nh, nc, L)
     w = torch.exp(cumk[..., -1:] - cumk).permute(0, 2, 3, 1)  # (b, nc, L, nh)
-    dx_inter = torch.einsum("bhcds,bcjhs->bcjhd", dsn, bk) * w[..., None]
-    db_inter = torch.einsum("bhcds,bcjhd->bcjhs", dsn, xk) * w[..., None]
-    dx = torch.einsum("bhctj,bcthd->bcjhd", gmat * dec, dyk) + dx_inter
-    dbh = torch.einsum("bhctj,bcths->bcjhs", r, ck) + db_inter
-    dch = torch.einsum("bhctj,bcjhs->bcths", r, bk) \
-        + dch.reshape(b, nc, chunk, nh, -1)
+    dxi = torch.einsum("bcjhs,bhcds->bcjhd", bkh, dsn) * w[..., None]
+    dbi = torch.einsum("bcjhd,bhcds->bcjhs", xk * w[..., None], dsn)
     s_out = torch.cat([s_prev[:, :, 1:], s_fin[:, :, None]], dim=2)
-    dcum = (dcum.reshape(b, nh, nc, chunk) + m.sum(-1) - m.sum(-2)
-            - torch.einsum("bcjhs,bcjhs->bhcj", bk, db_inter))
+    dcum = dcum.unflatten(2, (s // chunk, chunk)) \
+        - (xk * dxi).sum(-1).permute(0, 3, 1, 2)
     dcum[..., -1] += (dsn * s_out).sum((-2, -1))
     da = _reverse_cumsum(dcum).permute(0, 2, 3, 1).reshape(b, s, nh)
-    return (dx.reshape(b, s, nh, dh), da, dbh.reshape(b, s, nh, -1),
-            dch.reshape(b, s, nh, -1))
+    return (dx + dxi.reshape(b, s, nh, dh), da,
+            dbp + _by_slice(dbi, g, 3).flatten(1, 2))
 
 
-def ssd_bwd_group_sum(dbh: torch.Tensor, dch: torch.Tensor, g: int
+def ssd_bwd_slice_sum(dbp: torch.Tensor, dcp: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of K4-bwd's last pass (``ssd_bwd_group_sum_kernel``):
-    the per-head ``dbh, dch (b, s, nh, ds)`` summed over each group's heads
-    -> ``(dbmat, dcmat (b, s, g, ds))``."""
-    b, s, nh, ds = dbh.shape
-    return (dbh.reshape(b, s, g, nh // g, ds).sum(3),
-            dch.reshape(b, s, g, nh // g, ds).sum(3))
+    """Plain twin of K4-bwd's last pass (``ssd_bwd_slice_sum_kernel``): the
+    slices' partial ``dbp, dcp (b, s, g, slices, ds)`` summed -> ``(dbmat,
+    dcmat (b, s, g, ds))``."""
+    return dbp.sum(3), dcp.sum(3)

@@ -14,36 +14,42 @@ K4's inputs in the model's layout (``x (b, s, nh, dh)``, ``a (b, s, nh)``,
 and the final state's gradient (or ``None``: zero) -> ``(dx, da, dbmat,
 dcmat)``, all f32, at K4's head dims, state widths and chunks.
 
-What bounds it on the card: the f32 operations of the causal (t, j)
-pairs, 3 ds + 2 dh multiply-adds each, beside 4 L dh ds per chunk and
-head for the state terms (``chip_smoke.ssd_bwd_ops``); its traffic is
-a few times K4's.  Four device launches per call, the forward's three
-passes in reverse and a sum over each group's heads, no atomics, so two
-calls on the same inputs agree bit for bit: every (batch, chunk, head)
-tile's own part of the state gradient, the reverse state pass across
-chunks, every tile's dx, da and per-head dB / dC in 32 x 32 blocks of
-(t, j), then dB and dC summed over the group's heads in head order.  The
-wrapper allocates the scratch (the state gradients, the per-head dB and
-dC, the dcum terms) with ``torch.empty``.
+What bounds it on the card: its products, which run on the tensor cores
+in split TF32 (three TF32 products each, at near f32 accuracy; not
+PyTorch's TF32 switch): per chunk 2 dh multiply-adds per causal (t, j)
+pair and head, 3 ds per pair and group, beside 4 L dh ds per chunk and
+head for the state terms (``chip_smoke.ssd_bwd_ops``).  Five device
+launches per call, no atomics, so two calls on the same inputs agree bit
+for bit: each chunk's own part of the state gradient, the reverse state
+pass across chunks, the intra-chunk terms, the leaving state's terms with
+da, and the slices' partial dB / dC summed.  The per-tile passes run one
+CTA per (batch, chunk, slice of a group's heads: ``ref.ssd_bwd_slices``),
+so dB and dC are summed over a slice's heads on chip and the scratch holds
+one partial per slice, not per head.  The wrapper allocates the scratch
+(the state gradients, the slices' partial dB / dC, the dcum terms) with
+``torch.empty``.
 
 Beside it: the plain twin ``ref.ssd_scan_bwd``, the plain twins of the
-four passes (``ref.ssd_bwd_chunk_states``, ``ref.ssd_bwd_state_pass``,
-``ref.ssd_bwd_chunk``, ``ref.ssd_bwd_group_sum``) and the launch counter
-``LAUNCHES`` (one per call).
+five passes (``ref.ssd_bwd_chunk_states``, ``ref.ssd_bwd_state_pass``,
+``ref.ssd_bwd_chunk``, ``ref.ssd_bwd_state_terms``,
+``ref.ssd_bwd_slice_sum``) and the launch counter ``LAUNCHES`` (one per
+call).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import ssd_bwd_slices
 from repro_torch.kernels.ssd import ALIGN, HEAD_DIMS, MAX_STATE
 
-#: Device launches per call: chunk states, state pass, chunk, group sum.
-DEVICE_LAUNCHES = 4
+#: Device launches per call: chunk states, state pass, chunk, state terms,
+#: slice sum.
+DEVICE_LAUNCHES = 5
 
 #: ``fault`` codes of the C entry point, planted only by the checks that
-#: must catch them: in the third pass every 32-row j block skips its last
-#: t block (the last j block its diagonal one).
+#: must catch them: in the third pass every 16-row j tile skips its last
+#: t tile (the last j tile its diagonal one).
 FAULT_DROP_LAST_T_BLOCK = 1
 
 LAUNCHES = build.LaunchCounter("ssd_bwd")
@@ -53,16 +59,15 @@ def ssd_bwd_passes_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
                         cmat: torch.Tensor, cum: torch.Tensor,
                         s_prev: torch.Tensor, s_fin: torch.Tensor,
                         dy: torch.Tensor, dfinal: torch.Tensor | None = None,
-                        chunk: int = 128, chunk_states_only: bool = False,
+                        chunk: int = 128, passes: int = DEVICE_LAUNCHES,
                         fault: int = 0) -> tuple[torch.Tensor, ...]:
-    """Launch K4-bwd's passes on the current stream -> ``(dx, da, dbmat,
-    dcmat, dstates (b, nh, nc, dh, ds), dbh, dch (b, s, nh, ds), dcum (b,
-    nh, s))``: the gradients and the scratch.  ``dstates`` holds the
-    gradient into each chunk's leaving state, ``dbh`` / ``dch`` the
-    per-head dB / dC and ``dcum`` the first pass's terms.  With
-    ``chunk_states_only`` it stops after pass 1: ``dstates`` holds each
-    chunk's own U, ``dch`` the entering states' part of dC, and the
-    gradients are uninitialized."""
+    """Launch K4-bwd's first ``passes`` passes on the current stream ->
+    ``(dx, da, dbmat, dcmat, dstates (b, nh, nc, dh, ds), dcum (b, nh, s),
+    dbp, dcp (b, s, g, slices, ds))``: the gradients and the scratch.
+    ``dstates`` holds each chunk's own U after pass 1, then the gradient
+    into its leaving state; ``dcum`` the dcum terms so far, ``dbp`` /
+    ``dcp`` the slices' partial dB / dC so far.  Outputs no pass has
+    written yet are uninitialized."""
     b, s, nh, dh = x.shape
     g, ds = bmat.shape[2], bmat.shape[3]
     if dh not in HEAD_DIMS:
@@ -72,6 +77,8 @@ def ssd_bwd_passes_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     if chunk % 32 or not 0 < chunk <= 128 or s % chunk:
         raise ValueError(f"chunk {chunk} must be a multiple of 32 up to 128 "
                          f"dividing s = {s} (pad upstream)")
+    if not 0 < passes <= DEVICE_LAUNCHES:
+        raise ValueError(f"passes {passes} not in 1..{DEVICE_LAUNCHES}")
     nc = s // chunk
     f32 = torch.float32
     state = (b, nh, dh, ds)
@@ -95,20 +102,31 @@ def ssd_bwd_passes_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     dx, da = torch.empty_like(x), torch.empty_like(a)
     dbmat, dcmat = torch.empty_like(bmat), torch.empty_like(cmat)
     dstates = torch.empty_like(s_prev)
-    dbh = torch.empty((b, s, nh, ds), dtype=f32, device=dev)
-    dch = torch.empty_like(dbh)
     dcum = torch.empty_like(cum)
+    dbp = torch.empty((b, s, g, ssd_bwd_slices(nh // g)[1], ds), dtype=f32,
+                      device=dev)
+    dcp = torch.empty_like(dbp)
+    stop = 0 if passes == DEVICE_LAUNCHES else passes
     lib = build.library("ssd_bwd")
     rc = build.launch(
         lib.k4b_ssd_scan_bwd, dev, x.data_ptr(), bmat.data_ptr(),
         cmat.data_ptr(), dy.data_ptr(), cum.data_ptr(), s_prev.data_ptr(),
         s_fin.data_ptr(), 0 if dfinal is None else dfinal.data_ptr(),
         dx.data_ptr(), da.data_ptr(), dbmat.data_ptr(), dcmat.data_ptr(),
-        dstates.data_ptr(), dbh.data_ptr(), dch.data_ptr(), dcum.data_ptr(),
-        b, s, nh, g, dh, ds, chunk, int(chunk_states_only), int(fault))
+        dstates.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), dcum.data_ptr(),
+        b, s, nh, g, dh, ds, chunk, stop, int(fault))
     build.check(lib, "k4b", rc)
-    LAUNCHES.launched((b, s, nh, g, dh, ds, chunk, int(chunk_states_only)))
-    return dx, da, dbmat, dcmat, dstates, dbh, dch, dcum
+    LAUNCHES.launched((b, s, nh, g, dh, ds, chunk, stop))
+    return dx, da, dbmat, dcmat, dstates, dcum, dbp, dcp
+
+
+def scratch_bytes(b: int, s: int, nh: int, g: int, dh: int, ds: int,
+                  chunk: int = 128) -> int:
+    """Bytes of the scratch a call allocates: the state gradients, the
+    dcum terms and the slices' partial dB and dC."""
+    slices = ssd_bwd_slices(nh // g)[1]
+    return 4 * (b * nh * (s // chunk) * dh * ds + b * nh * s
+                + 2 * b * s * g * slices * ds)
 
 
 def ssd_scan_bwd_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,

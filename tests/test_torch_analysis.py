@@ -506,27 +506,34 @@ def test_mirror_k4_dynamic_shared_memory(nh, ds, state, scan):
     assert launches[0].kernel == f"ssd_chunk_state_kernel<64, {ds}>"
 
 
-@pytest.mark.parametrize("nh,ds,state,chunk", [
-    (50, 16, 48_640, 56_000),      # hymba training (dh 64, ds 16, chunk 128)
-    (80, 128, 134_656, 201_152)])  # mamba2 training (ds 128)
-def test_mirror_k4b_dynamic_shared_memory_and_grids(nh, ds, state, chunk):
-    """K4-bwd's four launches at the training microbatch (2, 4096): a CTA
-    per (batch, chunk, head) tile in passes 1 and 3, a thread per state
-    value in the state pass and per (step, group, k) in the group sum."""
+@pytest.mark.parametrize("nh,ds,state,chunk,terms,slices", [
+    (50, 16, 93_184, 212_480, 94_272, 7),       # hymba training (dh 64,
+                                                # ds 16, chunk 128)
+    (80, 128, 207_872, 212_480, 208_960, 10)])  # mamba2 training (ds 128)
+def test_mirror_k4b_dynamic_shared_memory_and_grids(nh, ds, state, chunk,
+                                                    terms, slices):
+    """K4-bwd's five launches at the training microbatch (2, 4096): a CTA
+    per (batch, chunk, slice of at most 8 heads) in passes 1, 3 and 4, a
+    thread per state value in the state pass and per (step, group, k) in
+    the slice sum; the slices as the plain twins cut them."""
+    from repro_torch.kernels import ref
+
     launches = kernel_budget.k4b_plan(2, 4096, nh, 1, 64, ds, 128)
-    assert [ln.smem for ln in launches] == [state, 0, chunk, 0]
+    assert [ln.smem for ln in launches] == [state, 0, chunk, terms, 0]
     assert [ln.grid[0] for ln in launches] == [
-        2 * 32 * nh, 2 * nh * 64 * ds // 256, 2 * 32 * nh,
-        2 * 4096 * ds // 256]
+        2 * 32 * slices, 2 * nh * 64 * ds // 256, 2 * 32 * slices,
+        2 * 32 * slices, 2 * 4096 * ds // 256]
     assert launches[2].kernel == f"ssd_bwd_chunk_kernel<64, {ds}>"
     assert kernel_budget.k4b_plan(2, 4096, nh, 1, 64, ds, 128, 1) == \
         launches[:1]
     assert kernel_budget.grid_covers(
         "ssd_bwd", (2, 4096, nh, 1, 64, ds, 128, 0), launches) == []
-    short = dataclasses.replace(launches[3], grid=(launches[3].grid[0] - 1,
+    short = dataclasses.replace(launches[4], grid=(launches[4].grid[0] - 1,
                                                    1, 1))
     assert kernel_budget.grid_covers(
-        "ssd_bwd", (2, 4096, nh, 1, 64, ds, 128, 0), launches[:3] + [short])
+        "ssd_bwd", (2, 4096, nh, 1, 64, ds, 128, 0), launches[:4] + [short])
+    for rep in (1, 2, 7, 8, 9, 25, 50, 80):
+        assert kernel_budget.k4b_slices(rep) == ref.ssd_bwd_slices(rep)
 
 
 @pytest.mark.parametrize("lanes,want", [
@@ -701,8 +708,8 @@ MIRROR_CONSTANTS = {
     "ssd": {"K4_THREADS": "kThreads", "K4_MAX_CHUNK": "kMaxChunk",
             "K4_STRIP_LD": "kStripLd"},
     "ssd_bwd": {"K4B_THREADS": "kThreads", "K4B_MAX_CHUNK": "kMaxChunk",
-                "K4B_BLOCK": "kBlock", "K4B_PAD": "kPad",
-                "K4B_BLOCK_LD": "kBlockLd"},
+                "K4B_TILE": "kTile", "K4B_PAD": "kPad",
+                "K4B_MAX_SLICE": "kMaxSlice"},
     "flash_attention_bwd": {"K3B_BLOCK_Q": "kBlockQ",
                             "K3B_BLOCK_K": "kBlockK",
                             "K3B_THREADS": "kThreads",

@@ -371,7 +371,7 @@ def _k4b_close(got, want, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,chunk,a_scale", [(256, 128, 0.3), (512, 64, 3.0),
-                                             (128, 32, 0.3)])
+                                             (128, 32, 0.3), (192, 96, 3.0)])
 @pytest.mark.parametrize("dh,g,ds", [(64, 1, 16), (64, 1, 128), (16, 2, 8),
                                      (64, 2, 5), (16, 1, 24)])
 @pytest.mark.parametrize("dfinal", [True, False])
@@ -392,35 +392,64 @@ def test_k4b_kernel_matches_plain_twin(card, s, chunk, a_scale, dh, g, ds,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,g,ds", [(64, 1, 16), (64, 1, 128), (16, 2, 5)])
-def test_k4b_passes_match_their_plain_twins(card, dh, g, ds):
-    """Each of K4-bwd's four passes against its plain twin on the kernel's
-    own inputs to it (pass 1 alone with ``chunk_states_only``)."""
-    inp = _k4b_inputs(7, 2, 512, 4, dh, g, ds, 128, 0.3, card)
-    x, a, bm, cm, cum, s_prev, s_fin, dy, dfin = inp
-    one = ssd_bwd.ssd_bwd_passes_cuda(*inp, 128, chunk_states_only=True)
-    full = ssd_bwd.ssd_bwd_passes_cuda(*inp, 128)
-    u, dch, dcum = ref.ssd_bwd_chunk_states(dy, cm, cum, s_prev, 128)
-    dsn = ref.ssd_bwd_state_pass(cum, one[4], dfin, 128)
-    third = ref.ssd_bwd_chunk(x, bm, cm, dy, cum, s_prev, s_fin, full[4],
-                              one[6], one[7], 128)
-    fourth = ref.ssd_bwd_group_sum(full[5], full[6], g)
+@pytest.mark.parametrize("nh,g,ds,chunk", [(50, 1, 16, 128), (50, 2, 128, 64),
+                                           (12, 2, 64, 128), (20, 2, 8, 32)])
+def test_k4b_ragged_slices_match_plain_twin(card, nh, g, ds, chunk):
+    """Groups whose heads are no multiple of the slice (50 heads in one
+    group as hymba: six slices of 8 and one of 2; two groups of 25: 7, 7,
+    7, 4) and two groups (of 6; of 10 in slices of 5), against the twin,
+    bit for bit twice."""
+    inp = _k4b_inputs(nh + ds, 2, 256, nh, 64, g, ds, chunk, 0.3, card)
+    got = ssd_bwd.ssd_scan_bwd_cuda(*inp, chunk)
+    again = ssd_bwd.ssd_scan_bwd_cuda(*inp, chunk)
+    want = ref.ssd_scan_bwd(*inp, chunk)
     torch.cuda.synchronize()
-    for name, got, want in (("u", one[4], u), ("dch1", one[6], dch),
-                            ("dcum1", one[7], dcum), ("dsn", full[4], dsn),
-                            ("dx", full[0], third[0]),
-                            ("da", full[1], third[1]),
-                            ("dbh", full[5], third[2]),
-                            ("dch", full[6], third[3]),
-                            ("dB", full[2], fourth[0]),
-                            ("dC", full[3], fourth[1])):
+    for name, g_, g2, w in zip(("dx", "da", "dB", "dC"), got, again, want):
+        _k4b_close(g_, w, name)
+        assert torch.equal(g_, g2), name
+
+
+def k4b_pass_pairs(inp, chunk):
+    """Each of K4-bwd's five passes against its plain twin on the kernel's
+    own inputs to it: (name, kernel, twin) triples."""
+    x, a, bm, cm, cum, s_prev, s_fin, dy, dfin = inp
+    run = [ssd_bwd.ssd_bwd_passes_cuda(*inp, chunk, passes=n)
+           for n in range(1, ssd_bwd.DEVICE_LAUNCHES + 1)]
+    one, two, three, four, five = run
+    u, dcp, dcum = ref.ssd_bwd_chunk_states(dy, cm, cum, s_prev, chunk)
+    dsn = ref.ssd_bwd_state_pass(cum, one[4], dfin, chunk)
+    dx3, dcum3, dbp3, dcp3 = ref.ssd_bwd_chunk(x, bm, cm, dy, cum, one[5],
+                                               one[7], chunk)
+    dx4, da4, dbp4 = ref.ssd_bwd_state_terms(x, bm, cum, s_prev, s_fin,
+                                             two[4], three[0], three[5],
+                                             three[6], chunk)
+    db5, dc5 = ref.ssd_bwd_slice_sum(four[6], four[7])
+    return [("pass1_u", one[4], u), ("pass1_dcp", one[7], dcp),
+            ("pass1_dcum", one[5], dcum), ("pass2_dstate", two[4], dsn),
+            ("pass3_dx", three[0], dx3), ("pass3_dcum", three[5], dcum3),
+            ("pass3_dbp", three[6], dbp3), ("pass3_dcp", three[7], dcp3),
+            ("pass4_dx", four[0], dx4), ("pass4_da", four[1], da4),
+            ("pass4_dbp", four[6], dbp4), ("pass5_db", five[2], db5),
+            ("pass5_dc", five[3], dc5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,dh,g,ds", [(4, 64, 1, 16), (4, 64, 1, 128),
+                                        (4, 16, 2, 5), (50, 64, 1, 16)])
+def test_k4b_passes_match_their_plain_twins(card, nh, dh, g, ds):
+    """Each of K4-bwd's five passes against its plain twin on the kernel's
+    own inputs to it (a call stopped after that pass)."""
+    inp = _k4b_inputs(7, 2, 512, nh, dh, g, ds, 128, 0.3, card)
+    pairs = k4b_pass_pairs(inp, 128)
+    torch.cuda.synchronize()
+    for name, got, want in pairs:
         _k4b_close(got, want, name)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ds", [16, 128])
 def test_k4b_planted_fault_is_caught(card, ds):
-    """Every j block skipping its last t block fails the twin check."""
+    """Every j tile skipping its last t tile fails the twin check."""
     inp = _k4b_inputs(9, 2, 256, 4, 64, 1, ds, 128, 0.3, card)
     bad = ssd_bwd.ssd_scan_bwd_cuda(*inp, 128,
                                     fault=ssd_bwd.FAULT_DROP_LAST_T_BLOCK)
@@ -430,7 +459,8 @@ def test_k4b_planted_fault_is_caught(card, ds):
 
 @pytest.mark.cuda
 def test_k4b_four_device_launches_per_call(card):
-    """One call is ``ssd_bwd.DEVICE_LAUNCHES`` device kernels, all named
+    """One call is ``ssd_bwd.DEVICE_LAUNCHES`` device kernels (five since
+    the slice sum replaced the group sum; the name is kept), all named
     ``ssd_bwd_*``, and one counted launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -445,7 +475,7 @@ def test_k4b_four_device_launches_per_call(card):
         torch.cuda.synchronize()
     names = sorted(e.name for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
-    assert len(names) == ssd_bwd.DEVICE_LAUNCHES == 4, names
+    assert len(names) == ssd_bwd.DEVICE_LAUNCHES == 5, names
     assert all("ssd_bwd_" in n for n in names), names
     assert ssd_bwd.LAUNCHES.count == before + 1
 
@@ -976,7 +1006,8 @@ BUDGET_THREADS = {"kernel_matrix_kernel": 256, "solver_kernel": 1024,
                   "ssd_bwd_chunk_state_kernel": 256,
                   "ssd_bwd_state_pass_kernel": 256,
                   "ssd_bwd_chunk_kernel": 256,
-                  "ssd_bwd_group_sum_kernel": 256,
+                  "ssd_bwd_state_terms_kernel": 256,
+                  "ssd_bwd_slice_sum_kernel": 256,
                   "bwd_prep_kernel": 256, "bwd_dkv_kernel": 256,
                   "bwd_dq_kernel": 256, "bwd_dkv_wgmma_kernel": 384,
                   "bwd_dq_wgmma_kernel": 288, "bwd_dkv_sum_kernel": 256}

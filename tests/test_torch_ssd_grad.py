@@ -1,5 +1,6 @@
 """K4's gradient on the CPU: the plain twin of K4-bwd
-(``ref.ssd_scan_bwd``), the plain twins of its four passes and
+(``ref.ssd_scan_bwd``), the plain twins of its five passes (and their
+products in split TF32, as the kernel's tensor cores compute them) and
 ``ops.SSDScan``, against torch autograd through the plain scan and against
 the jitted ``jax.vjp`` of the reference's ``repro.models.ssm.ssd_chunked``.
 
@@ -134,22 +135,88 @@ def test_twin_matches_the_reference_jitted_vjp(case):
         _close(got, want, name)
 
 
+def _pass_chain(x, a, bm, cm, dy, dfin, chunk, s_fin, cum, s_prev):
+    """The five pass twins chained: chunk states, state pass, chunk (the
+    intra-chunk terms), state terms (with da), slice sum -> (dx, da, dB,
+    dC)."""
+    u, dcp, dcum = ref.ssd_bwd_chunk_states(dy, cm, cum, s_prev, chunk)
+    dsn = ref.ssd_bwd_state_pass(cum, u, dfin, chunk)
+    dx, dcum, dbp, dcp = ref.ssd_bwd_chunk(x, bm, cm, dy, cum, dcum, dcp,
+                                           chunk)
+    dx, da, dbp = ref.ssd_bwd_state_terms(x, bm, cum, s_prev, s_fin, dsn, dx,
+                                          dcum, dbp, chunk)
+    db, dc = ref.ssd_bwd_slice_sum(dbp, dcp)
+    return dx, da, db, dc
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_pass_twins_compose_to_the_whole(case):
-    """Pass 1 (each chunk's U, the entering states' dC and dcum terms),
-    pass 2 (the reverse state pass), pass 3 (the chunk terms) and pass 4
-    (the group sum), chained, give ``ref.ssd_scan_bwd``."""
+    """Pass 1 (each chunk's U, the entering states' dC per slice of heads
+    and its dcum terms), pass 2 (the reverse state pass), pass 3 (the
+    intra-chunk terms), pass 4 (the leaving states' terms and da) and pass
+    5 (the slice sum), chained, give ``ref.ssd_scan_bwd`` and the
+    reference's jitted VJP."""
     s, _, g, _, chunk, _ = CASES[case]
     x, a, bm, cm, dy, dfin = _padded(case)
     _, s_fin, cum, s_prev = ref.ssd_passes(x, a, bm, cm, chunk)
-    u, dch, dcum = ref.ssd_bwd_chunk_states(dy, cm, cum, s_prev, chunk)
-    dsn = ref.ssd_bwd_state_pass(cum, u, dfin, chunk)
-    dx, da, dbh, dch = ref.ssd_bwd_chunk(x, bm, cm, dy, cum, s_prev, s_fin,
-                                         dsn, dch, dcum, chunk)
-    db, dc = ref.ssd_bwd_group_sum(dbh, dch, g)
-    for name, got, want in zip(("dx", "da", "dB", "dC"), (dx, da, db, dc),
-                               _twin(case)):
-        _close(got[:, :s], want, name)
+    got = _pass_chain(x, a, bm, cm, dy, dfin, chunk, s_fin, cum, s_prev)
+    for name, g_, want, vjp in zip(("dx", "da", "dB", "dC"), got,
+                                   _twin(case), _reference_vjp(case)):
+        _close(g_[:, :s], want, name)
+        _close(g_[:, :s], vjp, name)
+
+
+def _tf32(v: torch.Tensor, nearest: bool) -> torch.Tensor:
+    """f32 ``v`` with its low 13 mantissa bits cleared: rounded to the
+    nearest TF32 value (ties away from zero, as ``cvt.rna.tf32.f32``), or
+    cut as the tensor core cuts an operand it reads as TF32."""
+    bits = v.contiguous().view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _split_einsum(eq, a, b):
+    """A two-operand einsum as K4-bwd's tensor cores compute it in split
+    TF32: a = a_hi + a_lo, a_hi the nearest TF32 value and a_lo = a - a_hi
+    read as TF32, then a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms
+    first, each product in f32."""
+    einsum = _split_einsum.einsum
+    ah, bh = _tf32(a, True), _tf32(b, True)
+    al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+    return (einsum(eq, al, bh) + einsum(eq, ah, bl)) + einsum(eq, ah, bh)
+
+
+_split_einsum.einsum = torch.einsum
+
+
+@pytest.mark.parametrize("ds", [16, 128])
+@pytest.mark.parametrize("a_scale", [0.3, 3.0])
+def test_split_tf32_products_hold_the_tolerance(monkeypatch, ds, a_scale):
+    """The precision plan of K4-bwd's tensor-core products, before any card
+    run: the pass twins with every product (each two-operand einsum) in
+    split TF32, against the same twins in f64, at mild and strong decay
+    (a x 0.3, x 3.0): dx, da, dB and dC within ``TOL`` (max |err| <= TOL
+    max(1, max |g|) and relative L2 <= TOL).  One-pass TF32 would not
+    hold it: its products keep about three decimal digits."""
+    b, s, nh, g, dh, chunk = 2, 256, 4, 1, 64, 128
+    rng = np.random.RandomState(ds + int(10 * a_scale))
+    draw = [rng.randn(b, s, nh, dh) * 0.3, -np.abs(rng.randn(b, s, nh))
+            * a_scale, rng.randn(b, s, g, ds) * 0.3,
+            rng.randn(b, s, g, ds) * 0.3, rng.randn(b, s, nh, dh),
+            rng.randn(b, nh, dh, ds)]
+    x, a, bm, cm, dy, dfin = (torch.from_numpy(v.astype(np.float32))
+                              for v in draw)
+    _, s_fin, cum, s_prev = ref.ssd_passes(x, a, bm, cm, chunk)
+    f32 = (x, a, bm, cm, dy, dfin, chunk, s_fin, cum, s_prev)
+    want = _pass_chain(*(v.double() if isinstance(v, torch.Tensor) else v
+                         for v in f32))
+    with monkeypatch.context() as m:
+        m.setattr(torch, "einsum", _split_einsum)
+        got = _pass_chain(*f32)
+    for name, g_, w in zip(("dx", "da", "dB", "dC"), got, want):
+        assert g_.dtype == torch.float32
+        _close(g_, w.float(), name)
 
 
 @pytest.mark.parametrize("case", list(CASES))
