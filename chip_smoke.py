@@ -228,6 +228,32 @@ Phases, in order; any failure exits nonzero before the result line:
    device ms); then starcoder2's three steps again with the plain attention
    and with f32 moments, beside the kernels' losses (``RISE_ARCH``).
 
+15. The distributed substrate on the card (after phase 13), its parts on
+   ``[card] * n`` meshes of the one card: (a) hymba-1.5b whole in bf16,
+   its 32 blocks as 4 stages of 8 (``distributed.pipeline``) over 4
+   microbatches of 1 x 2048 tokens, against the same blocks run in order
+   on each microbatch (phase 7's bf16 bound), exactly 128 K3 and 128 K4
+   launches, both wall times, and K3 / K4 against their plain versions at
+   the pipeline's shapes (batch 1; phase 5's tolerances); (b)
+   granite-moe-1b-a400m at full width, the mesh train step on a (2, 2)
+   ("data", "model") mesh, 4 x 4096 tokens, 2 steps, against the unsharded
+   ``grad_accum=2`` step from the same state, both under deterministic
+   algorithms (loss within 1e-5 relative, every leaf of the state within
+   1e-4 relative L2; bit for bit on an H100), 96 K3 / 48 K3-bwd launches in
+   step 2, then one more step of each with the default algorithms, timed
+   (s/step of both modes), and peak memory; (d) that state resharded (2, 2) -> (4, 1) -> (2, 2) bit for
+   bit, and one step on each mesh over the same four microbatches within
+   (b)'s bounds; (c) (b)'s gradient tree as 8 shares (share i = g (1 +
+   u_i / 2)) through the compressed all-reduce on ``[card] * 8``, leaf by
+   leaf: the error within half a block's step, 20 repeats with error
+   feedback halving it, all the codes and block scales of the timed call
+   equal to the CPU's, ms per all-reduce; (f) ``QuantTensor`` of every expert bank, codes equal
+   to the CPU's; (e) the dry run (``launch.dryrun``) of every (arch x
+   shape) cell at both production meshes on ``meta``, in processes beside
+   (a)-(f), with trace seconds and argument bytes per device per cell; one
+   cell per (family, kind) if the grid would outrun ``DRYRUN_BUDGET_S``
+   (the rest are named).
+
 Each phase prints its wall time.  Then it prints the ``kernels`` JSON
 line, the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
 {...}}``.
@@ -3877,6 +3903,627 @@ def static_analysis_phase(dev, recorded: dict, fits: dict, har12,
                 k4b_tensor_cores=k4b_tensor_cores())
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the distributed substrate on the card
+# ---------------------------------------------------------------------------
+
+#: (a) hymba-1.5b whole in bf16: its blocks as PIPE_STAGES stages on a
+#: ``[card] * PIPE_STAGES`` "stage" mesh, PIPE_MICRO microbatches of 1 x
+#: PIPE_SEQ tokens.
+PIPE_ARCH, PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = "hymba-1.5b", 4, 4, 2048
+#: (b)-(d), (f): granite-moe-1b-a400m at full width, f32 masters and
+#: moments, on a (2, 2) ("data", "model") mesh of ``[card] * 4``; a global
+#: batch of 4 x 4096 tokens, MESH_STEPS steps.
+MESH_ARCH, MESH_SHAPE, MESH_BATCH, MESH_STEPS = TRAIN_ARCH, (2, 2), (4, 4096), 2
+#: (b), (d): the mesh step against the unsharded one, loss and every leaf,
+#: both under deterministic algorithms (``_deterministic``); (b) then
+#: times one more step of each with the default ones.
+MESH_LOSS_RTOL, MESH_LEAF_REL_L2 = 1e-5, 1e-4
+#: (c) the compressed all-reduce: shares, block, feedback repeats, and the
+#: blocks per piece in which the CPU re-encodes a leaf to hold every code
+#: of the timed call to its own (a block's code reads that block alone).
+AR_SHARES, AR_BLOCK, AR_REPEATS, AR_CPU_BLOCKS = 8, 256, 20, 1 << 14
+#: (c)'s int8 bound in block steps: half a step (each share's rounding),
+#: plus the f32 rounding of a mean of up to 127 steps, twice.
+AR_STEP_BOUND = 0.5 + 2 * 127 * 2.0 ** -24
+#: (e) the dry run: processes tracing (arch, shape) cells on meta beside
+#: the card's work; the full grid if it ends within DRYRUN_BUDGET_S of
+#: the phase's start, else one cell per (family, kind).
+DRYRUN_WORKERS, DRYRUN_BUDGET_S = 6, 120.0
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms`` (warn only) for the phase's
+    step comparisons: the MoE's ``index_add_`` adds with atomics by
+    default, and a last-bit difference in one layer's output can route a
+    token to another expert in the next, which moves that expert's
+    gradient by percents (on an H100, 4.8e-2 relative L2 on the second
+    moment of granite-moe's expert banks after two steps)."""
+    import torch
+
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def _pipeline_kernel_checks(dev, cfg) -> dict:
+    """(a)'s kernels against their plain versions at the shapes the
+    pipeline gives them (one microbatch of 1 x PIPE_SEQ tokens; phase 5
+    holds them at batch 4), with phase 5's tolerances: K3 in bf16 on a
+    global and an SWA layer (``check_k3``'s 2e-2), K4 in each of
+    ``K4_CASES`` (``check_k4``'s atol 1e-4 on y and the final state)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, ref, ssd
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in (
+        (1, cfg.n_heads, PIPE_SEQ, cfg.head_dim),
+        (1, cfg.n_kv_heads, PIPE_SEQ, cfg.head_dim),
+        (1, cfg.n_kv_heads, PIPE_SEQ, cfg.head_dim)))
+    checks = {}
+    for layer, window in (("global", None), ("swa", cfg.window)):
+        got = flash_attention.flash_attention_cuda(q, k, v, True, window)
+        want = ref.flash_attention(q, k, v, True, window)
+        checks[f"k3_{layer}"] = within(got.float(), want.float(), 2e-2,
+                                       2e-2)
+    for case in K4_CASES:
+        x, a, bm, cm = k4_inputs(dev, case, b=1, s=PIPE_SEQ, arch=PIPE_ARCH)
+        y, sf = ssd.ssd_scan_cuda(x, a, bm, cm, 128)
+        y_p, sf_p = ref.ssd_scan(x, a, bm, cm, 128)
+        (ok_y, e_y), (ok_s, e_s) = within(y, y_p, 1e-4, 0.0), \
+            within(sf, sf_p, 1e-4, 0.0)
+        checks[f"k4_{case}"] = (ok_y and ok_s, max(e_y, e_s))
+    torch.cuda.synchronize()
+    errs = {name: err for name, (_, err) in checks.items()}
+    failed = [name for name, (ok, _) in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"pipeline shapes: {failed} {errs}")
+    return dict(shapes={"k3": [1, cfg.n_heads, cfg.n_kv_heads, PIPE_SEQ,
+                               cfg.head_dim],
+                        "k4": list(x.shape) + list(bm.shape[2:])},
+                max_abs_err=errs)
+
+
+def _pipeline_run(dev) -> dict:
+    """(a): hymba-1.5b's blocks through ``distributed.pipeline`` against
+    the same blocks run in order on each microbatch, within phase 7's bf16
+    bound (the same kernels on the same inputs: a sound run reads bit for
+    bit), and the kernels against their plain versions at the pipeline's
+    shapes (``_pipeline_kernel_checks``)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import transformer as tfm
+
+    cfg = configs.get(PIPE_ARCH).make_config()
+    shape_checks = _pipeline_kernel_checks(dev, cfg)
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(5))
+    toks = torch.randint(0, cfg.vocab_size, (PIPE_MICRO, 1, PIPE_SEQ),
+                         generator=torch.Generator(device=dev).manual_seed(6),
+                         device=dev)
+    with torch.no_grad():
+        mbs = torch.stack([tfm.embed_tokens(cfg, params, t) for t in toks])
+        mesh = mesh_mod.make_mesh((PIPE_STAGES,), ("stage",),
+                                  [dev] * PIPE_STAGES)
+        stages = pipeline.stage_layers(list(params.layers), PIPE_STAGES)
+        f = pipeline.pipeline_forward(mesh, pipeline.blocks_stage_fn(cfg))
+        pos = torch.arange(PIPE_SEQ, device=dev)
+
+        def plain():
+            return torch.stack([tfm.run_stack(cfg, params.layers, x, pos)[0]
+                                for x in mbs])
+
+        f(stages, mbs)                                  # warm
+        plain()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        got = f(stages, mbs).full()
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    scale = float(want.float().abs().max())
+    bound = BF16_LOGIT_ULPS * bf16_ulp(scale)
+    err = float((got.float() - want.float()).abs().max())
+    n = PIPE_MICRO * cfg.n_layers
+    row = dict(arch=PIPE_ARCH, stages=PIPE_STAGES, micro=PIPE_MICRO,
+               microbatch=[1, PIPE_SEQ], layers=cfg.n_layers,
+               pipeline_s=pipe_s, plain_stack_s=plain_s,
+               k3_launches=counts["flash_attention"],
+               k4_launches=counts["ssd"], max_abs_err=err, bound=bound,
+               bit_for_bit=bool(torch.equal(got, want)),
+               hidden_absmax=scale, kernels_vs_plain=shape_checks)
+    log("PIPELINE", json.dumps(row))
+    if counts["flash_attention"] != n or counts["ssd"] != n:
+        raise AssertionError(f"pipeline launches {counts}, want {n} K3 and "
+                             f"{n} K4")
+    if err > bound:
+        raise AssertionError(f"pipeline vs plain stack: {row}")
+    del params, stages, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def _mesh_batch(cfg, dev):
+    import torch
+
+    b, s = MESH_BATCH
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}
+
+
+def _leaf_errors(tree, want: dict, dev) -> dict:
+    """Relative L2 of each leaf of a state on a mesh (or a port state's
+    reference tree) against a reference-layout numpy state ``want``."""
+    import torch
+
+    from repro_torch.distributed import partition
+    from repro_torch.launch.mesh import Sharded
+
+    errs = {}
+    got = partition.tree_leaves_with_path(
+        {"params": tree["params"], "m": tree["opt"]["m"],
+         "v": tree["opt"]["v"]}, is_leaf=lambda x: isinstance(x, Sharded))
+    ref = dict(partition.tree_leaves_with_path(
+        {"params": want["params"], "m": want["opt"]["m"],
+         "v": want["opt"]["v"]}))
+    for path, x in got:
+        w = torch.from_numpy(ref[path]).to(dev)
+        errs["/".join(map(str, path))] = rel_l2(x.full(), w) if \
+            float(w.norm()) > 0 else float((x.full() - w).abs().max())
+    return errs
+
+
+def _mesh_steps(dev) -> tuple[dict, dict]:
+    """(b): the mesh step on (2, 2) against the unsharded ``grad_accum=2``
+    step from the same state; returns the row and what (c)-(f) read."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed import partition
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import convert
+    from repro_torch.models.common import ShardRules
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import step as step_mod
+
+    cfg = configs.get(MESH_ARCH).make_config()
+    oc = opt_mod.AdamWConfig(warmup_steps=1, total_steps=10)
+    rules = ShardRules()
+    batch = _mesh_batch(cfg, dev)
+    state = step_mod.init_train_state(
+        cfg, oc, torch.Generator(device=dev).manual_seed(0))
+    # a copy: on the CPU (a rehearsal) the tree's unstacked leaves would be
+    # views of the parameters the unsharded steps update in place
+    tree0 = partition.tree_map(np.copy,
+                               convert.train_state_to_numpy(cfg, state))
+
+    def run(ts, st, name, steps):
+        out = {"s": [], "loss": [], "gnorm": []}
+        for i in range(steps):
+            if i == steps - 1:
+                ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = ts(st, batch)
+            out["loss"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            out["s"].append(time.perf_counter() - t0)
+            out["gnorm"].append(float(m["grad_norm"]))
+            if i == steps - 1:
+                out["launches"] = ops.launch_counts()
+        log(f"MESH {name}", json.dumps({k: v for k, v in out.items()}))
+        return st, out
+
+    def compared_then_timed(ts, st, name, snapshot):
+        """MESH_STEPS steps under deterministic algorithms, ``snapshot``
+        of the state they leave, then one step with the default
+        algorithms, as a trainer runs: its time is the path's s/step."""
+        with _deterministic():
+            st, det = run(ts, st, name + ", deterministic", MESH_STEPS)
+        taken = snapshot(st)
+        st, fast = run(ts, st, name, 1)
+        det["s_default"] = fast["s"][0]
+        return st, det, taken
+
+    torch.cuda.reset_peak_memory_stats()
+    state, flat, want = compared_then_timed(
+        step_mod.make_train_step(cfg, rules, oc, grad_accum=2), state,
+        "unsharded", lambda st: partition.tree_map(
+            np.copy, convert.train_state_to_numpy(cfg, st)))
+    flat["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
+
+    mesh = mesh_mod.make_mesh(MESH_SHAPE, ("data", "model"), [dev] * 4)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    on_mesh = step_mod.shard_train_state(cfg, rules, oc, tree0, mesh)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    on_mesh, sharded, errs = compared_then_timed(
+        step_mod.make_train_step(cfg, rules, oc, mesh=mesh), on_mesh,
+        "sharded", lambda st: _leaf_errors(st, want, dev))
+    sharded["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sharded["loss"],
+                                                       flat["loss"]))
+    want_k = step_launches(cfg, 2 * cfg.n_layers, "bf16_wgmma")
+    got_k = {k: sharded["launches"][k] for k in want_k}
+    worst = max(errs, key=errs.get)
+    row = dict(arch=MESH_ARCH, mesh=list(MESH_SHAPE), devices="[card] * 4",
+               batch=list(MESH_BATCH), steps=MESH_STEPS,
+               unsharded_grad_accum=2, shard_s=shard_s,
+               s_per_step_sharded=sharded["s_default"],
+               s_per_step_unsharded=flat["s_default"],
+               s_per_step_sharded_deterministic=sharded["s"],
+               s_per_step_unsharded_deterministic=flat["s"],
+               peak_gb_sharded=sharded["peak_gb"],
+               peak_gb_unsharded=flat["peak_gb"],
+               losses_sharded=sharded["loss"], losses_unsharded=flat["loss"],
+               grad_norms_sharded=sharded["gnorm"],
+               loss_max_rel_diff=loss_rel, leaf_max_rel_l2=errs[worst],
+               worst_leaf=worst, launches_last_step=got_k,
+               bit_for_bit_leaves=sum(e == 0.0 for e in errs.values()),
+               leaves=len(errs))
+    log("MESH STEP", json.dumps(row))
+    if got_k != want_k:
+        raise AssertionError(f"mesh step launches {got_k}, want {want_k}")
+    if loss_rel > MESH_LOSS_RTOL or errs[worst] > MESH_LEAF_REL_L2 or \
+            not all(np.isfinite(sharded["loss"])):
+        raise AssertionError(f"mesh step vs unsharded: {row}")
+    return row, dict(cfg=cfg, oc=oc, rules=rules, batch=batch, mesh=mesh,
+                     state=on_mesh, tree0=tree0)
+
+
+def _elastic_run(dev, ctx: dict) -> dict:
+    """(d): (b)'s state (2, 2) -> (4, 1) -> (2, 2) bit for bit, then one
+    step on each mesh from it over the same microbatches (a dp share is a
+    microbatch: the MoE routes and caps per share)."""
+    import torch
+
+    from repro_torch.distributed import elastic, partition
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.mesh import Sharded, device_put
+    from repro_torch.training import step as step_mod
+
+    cfg, oc, rules, mesh = ctx["cfg"], ctx["oc"], ctx["rules"], ctx["mesh"]
+    state = ctx.pop("state")
+    m41 = mesh_mod.make_mesh((4, 1), ("data", "model"), [dev] * 4)
+    is_sh = lambda x: isinstance(x, Sharded)
+    t0 = time.perf_counter()
+    s41 = elastic.reshard(state, step_mod.train_state_specs(
+        cfg, rules, oc, m41.shape), m41)
+    torch.cuda.synchronize()
+    to41_s = time.perf_counter() - t0
+    specs22 = step_mod.train_state_specs(cfg, rules, oc, mesh.shape)
+    same, n, t_back = True, 0, 0.0
+    for x22, x41, spec in zip(partition.tree_leaves(state, is_sh),
+                              partition.tree_leaves(s41, is_sh),
+                              partition.tree_leaves(
+                                  specs22, lambda x: isinstance(
+                                      x, partition.P))):
+        if not is_sh(x22):
+            continue
+        t0 = time.perf_counter()
+        back = device_put(x41, mesh, spec)
+        torch.cuda.synchronize()
+        t_back += time.perf_counter() - t0
+        same &= back.spec == x22.spec and all(
+            torch.equal(a, b) for a, b in zip(back.shards, x22.shards))
+        n += 1
+    # the same four 1-row microbatches in the same order: a dp share of
+    # (4, 1), two accumulated in each share of (2, 2)
+    losses = {}
+    for name, m, st, ga in (("(4, 1)", m41, s41, 1),
+                            ("(2, 2)", mesh, state, 2)):
+        ts = step_mod.make_train_step(cfg, rules, oc, ga, mesh=m)
+        with _deterministic():
+            st, metrics = ts(st, ctx["batch"])
+        losses[name] = float(metrics["loss"])
+        del ts
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for a, b in zip(partition.tree_leaves(state, is_sh),
+                    partition.tree_leaves(s41, is_sh)):
+        if is_sh(a) and a.dtype.is_floating_point:
+            fa = a.full()
+            e = rel_l2(b.full(), fa) if float(fa.norm()) > 0 else \
+                float((b.full() - fa).abs().max())
+            worst = max(worst, e)
+    rel = abs(losses["(4, 1)"] - losses["(2, 2)"]) / abs(losses["(2, 2)"])
+    row = dict(roundtrip_bit_for_bit=bool(same), leaves=n,
+               reshard_to_41_s=to41_s, reshard_back_s=t_back,
+               losses_after_rescale=losses, loss_rel_diff=rel,
+               leaf_max_rel_l2=worst,
+               local_shape_embed={"(2, 2)": list(
+                   state["params"]["embed"].local_shape), "(4, 1)": list(
+                   s41["params"]["embed"].local_shape)})
+    log("ELASTIC", json.dumps(row))
+    del state, s41
+    torch.cuda.empty_cache()
+    if not same or rel > MESH_LOSS_RTOL or worst > MESH_LEAF_REL_L2:
+        raise AssertionError(f"elastic: {row}")
+    return row
+
+
+def _codes_equal_cpu(shares, codes: list, scale) -> bool:
+    """All of a leaf's codes and block scales, as the card's all-reduce
+    made them, against the CPU's on the same shares (with zero error
+    buffers): ``compression.common_scale`` and the encoding
+    ``encode_shares`` applies, AR_CPU_BLOCKS blocks at a time (a block's
+    code reads that block of every share alone)."""
+    import torch
+
+    from repro_torch.distributed import compression
+
+    flat = shares.reshape(AR_SHARES, -1)
+    n, n_blocks = flat.shape[1], scale.shape[0]
+    zero = torch.zeros(AR_CPU_BLOCKS * AR_BLOCK)
+    for b0 in range(0, n_blocks, AR_CPU_BLOCKS):
+        b1 = min(n_blocks, b0 + AR_CPU_BLOCKS)
+        e0, e1 = b0 * AR_BLOCK, min(n, b1 * AR_BLOCK)
+        host = [x[e0:e1].cpu() for x in flat]
+        h_scale = compression.common_scale(
+            host, [zero[:e1 - e0]] * AR_SHARES, AR_BLOCK)
+        if not torch.equal(scale[b0:b1].cpu(), h_scale) or not all(
+                torch.equal(q[b0:b1].cpu(), compression._encode(
+                    compression._blocks(x, AR_BLOCK), h_scale))
+                for q, x in zip(codes, host)):
+            return False
+    return True
+
+
+def _allreduce_run(dev, ctx: dict) -> dict:
+    """(c): (b)'s gradient tree (its first microbatch's, from its initial
+    state) in AR_SHARES shares, share i = g (1 + u_i / 2) with u_i drawn
+    per entry, through the compressed all-reduce on ``[card] *
+    AR_SHARES``, leaf by leaf; the error against the exact mean within
+    the int8 bound (half a block's step), AR_REPEATS repeats with error
+    feedback halving it, and every code and block scale of the timed call
+    (kept by wrapping ``compression.encode_shares`` for that call) equal
+    to the CPU's (``_codes_equal_cpu``, in a thread beside the card's
+    repeats; the previous leaf's check ends before a timed call, so no copy
+    of it lands between the timed call's events)."""
+    import concurrent.futures
+
+    import torch
+
+    from repro_torch.distributed import compression
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as tfm
+
+    cfg, tree0 = ctx["cfg"], ctx["tree0"]
+    model = convert.params_from_numpy(cfg, tree0["params"], dev,
+                                      torch.float32)
+    for t in model.parameters():
+        t.requires_grad_(True)
+    micro = {k: v[:MESH_BATCH[0] // 2] for k, v in ctx["batch"].items()}
+    loss, _ = tfm.forward_train(cfg, model, micro)
+    loss.backward()
+    grads = [(leaf.path, leaf.gather(
+        lambda t: torch.zeros_like(t) if t.grad is None else t.grad))
+        for leaf in convert.reference_leaves(cfg, model)]
+    del model, loss
+    torch.cuda.empty_cache()
+
+    mesh = mesh_mod.make_mesh((AR_SHARES,), ("data",), [dev] * AR_SHARES)
+    ar = compression.make_compressed_allreduce(mesh, "data", AR_BLOCK)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    err1 = err20 = bound_ratio = ms = cpu_check_s = 0.0
+    n = codes_equal = 0
+    encode = compression.encode_shares
+    checker = concurrent.futures.ThreadPoolExecutor(1)
+    pending = None
+
+    def check(shares, codes, scale):
+        t0 = time.perf_counter()
+        return _codes_equal_cpu(shares, codes, scale), \
+            time.perf_counter() - t0
+
+    def settle():
+        nonlocal codes_equal, cpu_check_s
+        if pending is not None:
+            ok, took = pending.result()
+            codes_equal += ok
+            cpu_check_s += took
+
+    for path, g in grads:
+        shares = torch.stack([g * (1 + 0.5 * torch.randn(
+            g.shape, generator=gen, device=dev)) for _ in range(AR_SHARES)])
+        zero = torch.zeros_like(g)
+        exact = sum(x.double() for x in shares) / AR_SHARES
+        step = compression.common_scale(list(shares), [zero] * AR_SHARES,
+                                        AR_BLOCK)
+        step = step.double().expand(-1, AR_BLOCK).reshape(-1)[:g.numel()]
+        errs = {"g": zero.expand(AR_SHARES, *g.shape)}
+        made = []
+
+        def keeping(*args, **kw):
+            out = encode(*args, **kw)
+            made.append(out[:2])
+            return out
+
+        settle()
+        compression.encode_shares = keeping
+        try:
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            mean, errs = ar({"g": shares}, errs)
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            compression.encode_shares = encode
+        ms += start.elapsed_time(end)
+        pending = checker.submit(check, shares, *made.pop())
+        e1 = (mean["g"].full().double() - exact).abs().reshape(-1)
+        bound_ratio = max(bound_ratio, float(
+            (e1 / torch.clamp(step, min=1e-30)).max()))
+        err1 = max(err1, float(e1.max()))
+        del e1, step
+        acc = torch.zeros_like(exact)
+        for _ in range(AR_REPEATS):
+            mean, errs = ar({"g": shares}, errs)
+            acc += mean["g"].full().double()
+        err20 = max(err20, float((acc / AR_REPEATS - exact).abs().max()))
+        n += 1
+        del shares, exact, errs, mean, acc
+    settle()
+    checker.shutdown()
+    torch.cuda.empty_cache()
+    row = dict(shares=AR_SHARES, block=AR_BLOCK, leaves=n,
+               entries_per_share=sum(g.numel() for _, g in grads),
+               ms_per_allreduce=ms, max_err_first=err1,
+               max_err_over_step_first=bound_ratio,
+               max_err_mean_of_repeats=err20, repeats=AR_REPEATS,
+               leaves_codes_equal_cpu=codes_equal,
+               codes_checked="all, of the timed call",
+               cpu_check_s=cpu_check_s)
+    log("ALLREDUCE", json.dumps(row))
+    if bound_ratio > AR_STEP_BOUND or not err20 < err1 / 2 or \
+            codes_equal != n:
+        raise AssertionError(f"compressed all-reduce: {row}")
+    return row
+
+
+def _quant_banks(dev, ctx: dict) -> dict:
+    """(f): ``QuantTensor`` of every expert bank of granite-moe's (b)
+    initial state on the card, codes and scales equal to the CPU's."""
+    import torch
+
+    from repro_torch.core import mixed_precision as mp
+
+    moe = ctx["tree0"]["params"]["layers"]["moe"]
+    equal = n = 0
+    t_card = 0.0
+    for name in ("wg", "wu", "wd"):
+        for w in moe[name]:
+            host = torch.from_numpy(w)
+            card = host.to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qc = mp.QuantTensor.quantize(card)
+            torch.cuda.synchronize()
+            t_card += time.perf_counter() - t0
+            qh = mp.QuantTensor.quantize(host)
+            equal += torch.equal(qc.q.cpu(), qh.q) and torch.equal(
+                qc.scale.cpu(), qh.scale)
+            n += 1
+    row = dict(banks=n, shape=list(moe["wg"].shape[1:]), codes_equal_cpu=equal,
+               card_quantize_ms_per_bank=t_card / n * 1e3)
+    log("QUANT BANKS", json.dumps(row))
+    if equal != n:
+        raise AssertionError(f"QuantTensor card vs CPU: {row}")
+    return row
+
+
+def dryrun_worker(arch: str, shape: str) -> tuple:
+    """One (arch, shape) at both production meshes, in a worker process."""
+    from repro_torch.launch import dryrun
+
+    out = str(ROOT / "build" / "dryrun_torch")
+    os.makedirs(out, exist_ok=True)
+    return dryrun.run_grid([(arch, shape)], [False, True], out=out,
+                           log=lambda *a: None)
+
+
+def _dryrun_cells():
+    from repro_torch import configs
+
+    return [(a, s) for a in configs.ARCHS for s in configs.shapes_for(a)]
+
+
+def _dryrun_subset(cells):
+    """One cell per (family, kind), the first in ``configs.ARCHS`` order."""
+    from repro_torch import configs
+    from repro_torch.configs import base
+
+    seen, out = set(), []
+    for a, s in cells:
+        key = (configs.get(a).make_config().family, base.SHAPES[s]["kind"])
+        if key not in seen:
+            seen.add(key)
+            out.append((a, s))
+    return out
+
+
+def distributed_phase(dev) -> dict:
+    """Phase 15: (e) starts in DRYRUN_WORKERS processes, then (a), (b),
+    (d), (c) and (f) run on the card; (e) is read last."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    cells = _dryrun_cells()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        DRYRUN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    futures = {pool.submit(dryrun_worker, a, s): (a, s) for a, s in cells}
+    try:
+        out = {"pipeline": _pipeline_run(dev)}
+        out["mesh_step"], ctx = _mesh_steps(dev)
+        out["elastic"] = _elastic_run(dev, ctx)
+        out["allreduce"] = _allreduce_run(dev, ctx)
+        out["quant_banks"] = _quant_banks(dev, ctx)
+        del ctx
+        torch.cuda.empty_cache()
+        done, late = concurrent.futures.wait(
+            futures, timeout=max(0.0, DRYRUN_BUDGET_S - (
+                time.perf_counter() - t_start)))
+        if late:
+            # Too slow for the budget: one cell per (family, kind).
+            keep = set(_dryrun_subset(cells))
+            for fut in late:
+                if futures[fut] not in keep:
+                    fut.cancel()
+            done, _ = concurrent.futures.wait(
+                [f for f in futures if futures[f] in keep])
+        records, failures, skipped = [], [], []
+        for fut, cell in futures.items():
+            if fut.cancelled() or not fut.done():
+                skipped.append("/".join(cell))
+                continue
+            recs, fails = fut.result()
+            records += recs
+            failures += fails
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for r in records:
+        log(f"DRYRUN {r['arch']} {r['shape']} {r['mesh']}: trace "
+            f"{r['trace_s']:.2f} s, args {r['memory']['argument_bytes'] / 1e9:.3f}"
+            f" GB/device, {r['flops_per_device']:.4e} FLOP/device")
+    out["dryrun"] = dict(cells=len(records), failures=failures,
+                         skipped=skipped, workers=DRYRUN_WORKERS,
+                         trace_s_total=sum(r["trace_s"] for r in records) / 2,
+                         ended_s=time.perf_counter() - t_start)
+    log("DRYRUN", json.dumps(out["dryrun"]))
+    if failures or not records:
+        raise AssertionError(f"dry run: {out['dryrun']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3992,6 +4639,10 @@ def main() -> int:
                                      serving["fleet"])
     del har12
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    dist = distributed_phase(dev)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
     full = training["full"]
     trained = {**training["configs"], **training["ssm"]}
     k3_paths = {"hymba-1.5b": serve_counts["flash_attention"],
@@ -4000,11 +4651,15 @@ def main() -> int:
                     full["launches_step_2"]["flash_attention"],
                 **{f"{arch} train step": r["launches_step_2"][
                     "flash_attention"]
-                   for arch, r in trained.items()}}
+                   for arch, r in trained.items()},
+                f"{PIPE_ARCH} pipeline": dist["pipeline"]["k3_launches"],
+                f"{MESH_ARCH} mesh step": dist["mesh_step"][
+                    "launches_last_step"]["flash_attention"]}
     k4_paths = {"hymba-1.5b": serve_counts["ssd"],
                 **{r["arch"]: r["k4_launches"] for r in family_rows.values()},
                 **{f"{arch} train step": r["launches_step_2"]["ssd"]
-                   for arch, r in training["ssm"].items()}}
+                   for arch, r in training["ssm"].items()},
+                f"{PIPE_ARCH} pipeline": dist["pipeline"]["k4_launches"]}
     k4b_paths = {f"{arch} train step": r["launches_step_2"]["ssd_bwd"]
                  for arch, r in training["ssm"].items()}
     k4b = [r for r in training["k4_bwd"] if "ms" in r]
@@ -4012,14 +4667,17 @@ def main() -> int:
         r["k3_tensor_core"] for r in family_rows.values()) + \
         full["launches_step_2"]["flash_attention_bf16_wgmma"] + sum(
             r["launches_step_2"]["flash_attention_bf16_wgmma"]
-            for r in trained.values())
+            for r in trained.values()) + dist["pipeline"]["k3_launches"] + \
+        dist["mesh_step"]["launches_last_step"]["flash_attention_bf16_wgmma"]
     k3b = next(r for r in training["k3_bwd"] if r["dtype"] == "bfloat16"
                and r["shape"] == "granite-moe training")
     k3b_paths = {f"{TRAIN_ARCH} train step":
                      full["launches_step_2"]["flash_attention_bwd"],
                  **{f"{arch} train step": r["launches_step_2"][
                      "flash_attention_bwd"]
-                    for arch, r in trained.items()}}
+                    for arch, r in trained.items()},
+                 f"{MESH_ARCH} mesh step": dist["mesh_step"][
+                     "launches_last_step"]["flash_attention_bwd"]}
 
     # K3's entry is the SWA layer in bf16 (29 of the 32 launches); the
     # global layer's row rides along.
@@ -4127,7 +4785,8 @@ def main() -> int:
                  "bf16_wgmma": full["launches_step_2"][
                      "flash_attention_bwd_bf16_wgmma"] + sum(
                      r["launches_step_2"]["flash_attention_bwd_bf16_wgmma"]
-                     for r in trained.values()),
+                     for r in trained.values()) + dist["mesh_step"][
+                     "launches_last_step"]["flash_attention_bwd_bf16_wgmma"],
                  "f32_cuda_cores": full["launches_step_2"][
                      "flash_attention_bwd_f32_cuda_cores"]},
              max_abs_err=k3b["max_abs_err"], rel_l2={

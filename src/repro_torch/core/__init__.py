@@ -9,4 +9,5 @@ Layout:
   trainer.py    batched Algorithm-1 engine
   selection.py  Algorithm 1 entry point + Table-II banks
   hwcost.py     FlexIC area/power cost model
+  mixed_precision.py  separation-driven precision domains (int8 / exact)
 """

@@ -13,9 +13,16 @@ Gradients: attention (K3) is differentiated by ``FlashAttention``, whose
 backward is K3-bwd on the card and its plain twin on the CPU; the SSD scan
 (K4) by ``SSDScan``, whose backward is K4-bwd on the card and its plain
 twin on the CPU.  So every family, ssm and hybrid included, trains on the
-card.
+card.  Off the card the SSD scan and its gradient are their kernels' pass
+twins in the card's order (``ref.ssd_passes``, ``ref.ssd_scan_bwd_by_pass``).
+
+The ``meta`` device (the dry run, ``launch/dryrun.py``) takes the LM
+kernels' plain versions too, the attention over coarser kv blocks
+(``META_BLOCK_K``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -44,12 +51,36 @@ def launch_counts() -> dict[str, int]:
     return {c.name: c.count for c in COUNTERS}
 
 
+#: The plain attention's kv block on ``meta``: the dry run's trace is
+#: shapes only, and the kernel's 64-key blocks would make a 32k-token
+#: layer thousands of traced ops.  The function is the same; the skip
+#: of dead blocks is coarser.
+META_BLOCK_K = 1024
+
+
+def _on_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
+def _plain_attention(q, k, v, **kw):
+    if _on_meta(q):
+        kw["block_k"] = META_BLOCK_K
+    return ref.flash_attention(q, k, v, **kw)
+
+
 def _on_card(t: torch.Tensor) -> bool:
     if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def _lm_on_card(t: torch.Tensor) -> bool:
+    """``_on_card`` for the LM's kernels (K3, K4 and their gradients), which
+    also take ``meta``: there the plain versions trace shapes for the dry
+    run (``launch/dryrun.py``)."""
+    return False if _on_meta(t) else _on_card(t)
 
 
 def rbf_matrix(x: torch.Tensor, sv: torch.Tensor, gamma: torch.Tensor,
@@ -89,8 +120,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        fn = _flash.flash_attention_cuda if _on_card(q) \
-            else ref.flash_attention
+        fn = _flash.flash_attention_cuda if _lm_on_card(q) \
+            else _plain_attention
         out, lse = fn(q, k, v, causal=causal, window=window,
                       q_offset=q_offset, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -100,8 +131,13 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        fn = _flash_bwd.flash_attention_bwd_cuda if _on_card(q) \
-            else ref.flash_attention_bwd
+        if _lm_on_card(q):
+            fn = _flash_bwd.flash_attention_bwd_cuda
+        elif _on_meta(q):
+            fn = functools.partial(ref.flash_attention_bwd,
+                                   block_k=META_BLOCK_K)
+        else:
+            fn = ref.flash_attention_bwd
         dq, dk, dv = fn(q, k, v, out, lse, do.contiguous(), *ctx.mask)
         return dq, dk, dv, None, None, None
 
@@ -115,7 +151,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, q_offset)
-    fn = _flash.flash_attention_cuda if _on_card(q) else ref.flash_attention
+    fn = _flash.flash_attention_cuda if _lm_on_card(q) else _plain_attention
     return fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
@@ -129,7 +165,7 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, a, bmat, cmat, chunk):
-        fn = _ssd.ssd_passes_cuda if _on_card(x) else ref.ssd_passes
+        fn = _ssd.ssd_passes_cuda if _lm_on_card(x) else ref.ssd_passes
         y, s_fin, cum, s_prev = fn(x, a, bmat, cmat, chunk)
         ctx.save_for_backward(x, a, bmat, cmat, cum, s_prev, s_fin)
         ctx.chunk = chunk
@@ -142,7 +178,8 @@ class SSDScan(torch.autograd.Function):
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         if dfinal is not None:
             dfinal = dfinal.contiguous()
-        fn = _ssd_bwd.ssd_scan_bwd_cuda if _on_card(x) else ref.ssd_scan_bwd
+        fn = _ssd_bwd.ssd_scan_bwd_cuda if _lm_on_card(x) \
+            else ref.ssd_scan_bwd_by_pass
         dx, da, db, dc = fn(x, a, bmat, cmat, cum, s_prev, s_fin, dy, dfinal,
                             ctx.chunk)
         SSD_BACKWARDS.count += 1
@@ -158,5 +195,6 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, a, bmat, cmat)):
         return SSDScan.apply(x, a, bmat, cmat, chunk)
-    fn = _ssd.ssd_scan_cuda if _on_card(x) else ref.ssd_scan
-    return fn(x, a, bmat, cmat, chunk=chunk)
+    if _lm_on_card(x):
+        return _ssd.ssd_scan_cuda(x, a, bmat, cmat, chunk=chunk)
+    return ref.ssd_passes(x, a, bmat, cmat, chunk)[:2]

@@ -192,21 +192,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, sq, dh)
 
 
-def _live_kv_blocks(sq: int, skv: int, causal: bool, window, q_offset):
-    """Start of every kv block of ``FLASH_BLOCK_K`` keys that some query row
-    of ``[q_offset, q_offset + sq)`` can see (the kernels' skip rule)."""
+def _live_kv_blocks(sq: int, skv: int, causal: bool, window, q_offset,
+                    block: int = FLASH_BLOCK_K):
+    """Start of every kv block of ``block`` keys that some query row of
+    ``[q_offset, q_offset + sq)`` can see (the kernels' skip rule)."""
     q_lo, q_hi = q_offset, q_offset + sq - 1
-    for k0 in range(0, skv, FLASH_BLOCK_K):
+    for k0 in range(0, skv, block):
         if causal and k0 > q_hi:
             break
-        if window is not None and k0 + FLASH_BLOCK_K - 1 <= q_lo - window:
+        if window is not None and k0 + block - 1 <= q_lo - window:
             continue
         yield k0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None,
-                    q_offset: int = 0, return_lse: bool = False):
+                    q_offset: int = 0, return_lse: bool = False,
+                    block_k: int = FLASH_BLOCK_K):
     """Plain version of K3: online softmax over kv blocks of
     ``FLASH_BLOCK_K``, step by step as ``_flash_kernel`` computes it.
 
@@ -219,7 +221,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     With ``return_lse`` it also returns the row log-sum-exp of the scaled
     logits, ``lse = m + log(l)`` (b, hq, sq) in f32, which the backward
     (``flash_attention_bwd``) reads; a row that sees no key has
-    ``lse = -inf``.
+    ``lse = -inf``.  ``block_k`` is the kv block (the kernel's unless a
+    caller asks otherwise: the meta device's trace takes coarser blocks).
     """
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -228,9 +231,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.full((b, hkv, group, sq, 1), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, hkv, group, sq, dh), device=q.device)
-    for k0 in _live_kv_blocks(sq, skv, causal, window, q_offset):
-        kb = k[:, :, k0:k0 + FLASH_BLOCK_K].float()
-        vb = v[:, :, k0:k0 + FLASH_BLOCK_K].float()
+    for k0 in _live_kv_blocks(sq, skv, causal, window, q_offset, block_k):
+        kb = k[:, :, k0:k0 + block_k].float()
+        vb = v[:, :, k0:k0 + block_k].float()
         mask = _attn_mask(sq, k0, kb.shape[2], causal, window, q_offset,
                           q.device)
         logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb)
@@ -251,7 +254,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         causal: bool = True, window: int | None = None,
-                        q_offset: int = 0
+                        q_offset: int = 0, block_k: int = FLASH_BLOCK_K
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of K3's backward kernel (``csrc/flash_attention_bwd.cu``),
     written out kv block by kv block as the kernel computes it, not through
@@ -264,7 +267,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q heads of the kv head's group, ``dQ = scale sum dS k`` over the kv
     blocks.  ``lse`` is the forward's (b, hq, sq) f32 row log-sum-exp.
     Returns ``(dq, dk, dv)`` in the inputs' dtype; a row that sees no key
-    gets a zero gradient.
+    gets a zero gradient.  ``block_k`` as in ``flash_attention``.
     """
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -280,9 +283,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.zeros_like(qg)
     dk = torch.zeros((b, hkv, skv, dh), device=q.device)
     dv = torch.zeros_like(dk)
-    for k0 in _live_kv_blocks(sq, skv, causal, window, q_offset):
-        kb = k[:, :, k0:k0 + FLASH_BLOCK_K].float()
-        vb = v[:, :, k0:k0 + FLASH_BLOCK_K].float()
+    for k0 in _live_kv_blocks(sq, skv, causal, window, q_offset, block_k):
+        kb = k[:, :, k0:k0 + block_k].float()
+        vb = v[:, :, k0:k0 + block_k].float()
         mask = _attn_mask(sq, k0, kb.shape[2], causal, window, q_offset,
                           q.device)
         s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb) * scale
@@ -373,14 +376,18 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
 def ssd_passes(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
                cmat: torch.Tensor, chunk: int = 128
                ) -> tuple[torch.Tensor, ...]:
-    """Plain twin of ``ssd.ssd_passes_cuda``: ``ssd_scan``'s ``(y,
-    final_state)``, then each chunk's ``cum`` and entering state from the
-    twins of K4's first two passes -> ``(y, final_state, cum (b, nh, s),
-    s_prev (b, nh, nc, dh, ds))``, what K4-bwd reads."""
-    y, s_fin = ssd_scan(x, a, bmat, cmat, chunk)
+    """Plain twin of ``ssd.ssd_passes_cuda``: K4's three pass twins in the
+    card's order (chunk states, state pass, chunk scan) -> ``(y,
+    final_state, cum (b, nh, s), s_prev (b, nh, nc, dh, ds))``, ``ssd_scan``'s
+    outputs and what K4-bwd reads.  Every chunk at once but for the state
+    recurrence, so a trace of it (the meta device's) is short."""
+    if x.shape[1] % chunk:
+        raise ValueError(f"s = {x.shape[1]} is not a multiple of chunk = "
+                         f"{chunk}")
     cum, own = ssd_chunk_states(x, a, bmat, chunk)
-    s_prev, _ = ssd_state_pass(cum, own, chunk)
-    return y, s_fin, cum, s_prev
+    s_prev, s_fin = ssd_state_pass(cum, own, chunk)
+    return ssd_chunk_scan(x, bmat, cmat, cum, s_prev, chunk), s_fin, cum, \
+        s_prev
 
 
 def ssd_chunk_states(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
@@ -679,6 +686,20 @@ def ssd_bwd_state_terms(x: torch.Tensor, bmat: torch.Tensor,
     da = _reverse_cumsum(dcum).permute(0, 2, 3, 1).reshape(b, s, nh)
     return (dx + dxi.reshape(b, s, nh, dh), da,
             dbp + _by_slice(dbi, g, 3).flatten(1, 2))
+
+
+def ssd_scan_bwd_by_pass(x, a, bmat, cmat, cum, s_prev, s_fin, dy, dfinal,
+                         chunk: int = 128) -> tuple[torch.Tensor, ...]:
+    """``ssd_scan_bwd``'s ``(dx, da, dbmat, dcmat)`` from K4-bwd's five
+    pass twins in the card's order: ``ops.SSDScan``'s backward off the
+    card.  ``ssd_scan_bwd``, the closed form, is what it is held to."""
+    u, dcp, dcum = ssd_bwd_chunk_states(dy, cmat, cum, s_prev, chunk)
+    dsn = ssd_bwd_state_pass(cum, u, dfinal, chunk)
+    dx, dcum, dbp, dcp = ssd_bwd_chunk(x, bmat, cmat, dy, cum, dcum, dcp,
+                                       chunk)
+    dx, da, dbp = ssd_bwd_state_terms(x, bmat, cum, s_prev, s_fin, dsn, dx,
+                                      dcum, dbp, chunk)
+    return (dx, da, *ssd_bwd_slice_sum(dbp, dcp))
 
 
 def ssd_bwd_slice_sum(dbp: torch.Tensor, dcp: torch.Tensor

@@ -31,6 +31,7 @@ from repro_torch import checkpoint as ckpt
 from repro_torch import configs
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.models.common import ShardRules
 from repro_torch.models.convert import (
     train_state_from_numpy, train_state_to_numpy,
 )
@@ -102,7 +103,8 @@ def main(argv=None, on_step=None):
             state = train_state_from_numpy(cfg, tree, dev)
             print(f"resumed from step {start}")
 
-    ts = step_mod.make_train_step(cfg, oc, grad_accum=args.grad_accum)
+    ts = step_mod.make_train_step(cfg, ShardRules(), oc,
+                                  grad_accum=args.grad_accum)
     t0 = time.time()
     losses = []
     for step in range(start, args.steps):

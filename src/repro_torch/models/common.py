@@ -2,8 +2,12 @@
 
 Counterpart of ``repro/models/common.py``.  One ``ModelConfig`` covers every
 architecture family of the reference (dense / moe / ssm / hybrid / vlm /
-audio).  Mesh sharding (``ShardRules`` / ``shard``) is a no-op on one card
-and is left out.
+audio).  ``ShardRules`` names the mesh axes of the logical parallel dims, as
+the reference's does; ``distributed.partition`` reads them to lay parameters,
+optimizer state and batches out on a mesh (``launch.mesh``).  The model's
+own activation constraint, ``shard``, is the identity, as the reference's
+is outside a mesh: the port's mesh step runs each share's forward whole on
+one device.
 
 Parameters live in ``nn.Module``s.  Dense weights are stored in the layout
 ``nn.Linear`` uses, ``(d_out, d_in)`` (``DENSE_LAYOUT``), and applied with
@@ -21,6 +25,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.launch.mesh import PartitionSpec as P
 
 #: Dense weights are ``(d_out, d_in)``: ``y = x @ w.T + b``.
 DENSE_LAYOUT = "out_in"
@@ -138,6 +144,38 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardRules:
+    """Axis names for the logical parallel dims.
+
+    dp: data-parallel mesh axes (('pod','data') multi-pod, ('data',) single)
+    tp: tensor-parallel axis   ('model')
+    fsdp: axis params/optimizer are additionally sharded over (ZeRO-3); None
+          replicates params over dp.
+    sp: sequence-parallel axis for long-context activations; None disables.
+    """
+
+    dp: tuple = ("data",)
+    tp: Optional[str] = "model"
+    fsdp: Optional[str] = "data"
+    sp: Optional[str] = None
+
+    def act(self, *rest) -> P:
+        """Activation spec: batch over dp, then given axes."""
+        return P(self.dp, *rest)
+
+
+def shard(x: torch.Tensor, spec: P) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` outside a mesh: ``x``
+    unchanged."""
+    return x
+
+
+# ---------------------------------------------------------------------------
 # Primitive layers
 # ---------------------------------------------------------------------------
 
@@ -202,6 +240,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                      dim=-1).to(x.dtype)
 
 
+class _MetaDraws:
+    """Stands in for a ``torch.Generator`` to build a model on the meta
+    device (``torch.Generator`` has no meta device): shapes and dtypes,
+    nothing drawn."""
+
+    device = torch.device("meta")
+
+
+#: Pass as the generator of an ``init`` to build the model on ``meta``.
+META = _MetaDraws()
+
+
 class Dense(nn.Module):
     """A dense layer's parameters in ``DENSE_LAYOUT``: ``weight (d_out,
     d_in)`` and an optional ``bias (d_out,)``."""
@@ -219,7 +269,10 @@ class Dense(nn.Module):
 def normal(shape, scale: float, generator: torch.Generator, dtype
            ) -> torch.Tensor:
     """``N(0, 1) * scale`` drawn in f32 on the generator's device, then
-    stored in ``dtype`` (the reference draws f32 and casts at use)."""
+    stored in ``dtype`` (the reference draws f32 and casts at use).  On
+    ``META`` nothing is drawn or allocated."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32)
     return t.mul_(scale).to(dtype)

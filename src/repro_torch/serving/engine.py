@@ -42,7 +42,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import ModelConfig, dense_apply, norm_apply
+from repro_torch.models.common import (
+    ModelConfig, ShardRules, dense_apply, norm_apply,
+)
 
 #: The families whose layers hold a full causal kv cache.
 KV_FAMILIES = ("dense", "vlm", "moe")
@@ -118,9 +120,11 @@ def _decode_attn(cfg: ModelConfig, p_attn: attn.Attention, h, positions,
 
 
 def decode_step(cfg: ModelConfig, params: tfm.Transformer, state: dict,
-                tokens: torch.Tensor) -> tuple[dict, torch.Tensor]:
+                tokens: torch.Tensor, rules: ShardRules | None = None
+                ) -> tuple[dict, torch.Tensor]:
     """tokens: (B, 1) -> (state, logits (B, vocab)); ``state`` is updated in
-    place."""
+    place.  ``rules`` is the reference's; without a mesh it changes
+    nothing."""
     pos = state["pos"]
     fam = cfg.family
     x = tfm.embed_tokens(cfg, params, tokens)
@@ -186,14 +190,15 @@ def decode_step(cfg: ModelConfig, params: tfm.Transformer, state: dict,
 # ---------------------------------------------------------------------------
 
 
-def prefill(cfg: ModelConfig, params: tfm.Transformer, batch: dict, cap: int
-            ) -> tuple[dict, torch.Tensor]:
+def prefill(cfg: ModelConfig, params: tfm.Transformer, batch: dict, cap: int,
+            rules: ShardRules | None = None) -> tuple[dict, torch.Tensor]:
     """Run the full-sequence stack, pack its kv / ssm into the serve state.
 
     batch: {tokens (B, S)}, and for vlm optionally {patch_embeds (B, P, D)},
     prepended to the token embeddings (positions run over both).  Returns
     (state at pos = P + S, last-token logits (B, vocab)).  The audio family
     raises, as the reference's does: it prefills through ``prefill_audio``.
+    ``rules``, as in ``decode_step``, changes nothing without a mesh.
     """
     if cfg.family == "audio":
         raise NotImplementedError(
@@ -237,7 +242,8 @@ def prefill(cfg: ModelConfig, params: tfm.Transformer, batch: dict, cap: int
 
 
 def prefill_audio(cfg: ModelConfig, params: tfm.Transformer, batch: dict,
-                  cap: int) -> tuple[dict, torch.Tensor]:
+                  cap: int, rules: ShardRules | None = None
+                  ) -> tuple[dict, torch.Tensor]:
     """Whisper: encode ``frames (B, Se, D)``, pack the cross kv (the first
     min(Se, cap / 2) frames; their count is the state's ``enc_len``), and
     prefill the decoder prompt ``tokens (B, S)``.  Returns (state at pos =

@@ -136,11 +136,15 @@ UPDATE_CHUNK = 1 << 24
 
 
 def update_leaf(cfg: AdamWConfig, p: torch.Tensor, g: torch.Tensor, m, v,
-                lr: torch.Tensor, bc1: torch.Tensor, bc2: torch.Tensor):
+                lr: torch.Tensor, bc1: torch.Tensor, bc2: torch.Tensor,
+                ndim: int | None = None):
     """One leaf's AdamW step -> ``(new_p, new_m, new_v)``; ``m`` and ``v``
     f32 tensors or ``Quant8`` (re-encoded on the way out), updated
-    ``UPDATE_CHUNK`` entries at a time."""
-    decay = cfg.weight_decay if p.ndim >= 2 else 0.0
+    ``UPDATE_CHUNK`` entries at a time.  The update is elementwise, so a
+    shard of a leaf updates alone: ``ndim`` is then the whole leaf's, for
+    the decay rule (default ``p.ndim``)."""
+    decay = cfg.weight_decay if (p.ndim if ndim is None else ndim) >= 2 \
+        else 0.0
     quant = isinstance(m, Quant8)
     n = p.numel()
     rows = max(1, UPDATE_CHUNK // cfg.block)     # Quant8 blocks per chunk

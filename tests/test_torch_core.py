@@ -349,7 +349,10 @@ def test_port_imports_no_jax_and_no_reference():
         "          'configs.whisper_medium', 'training', 'training.optimizer',\n"
         "          'training.step', 'checkpoint', 'checkpoint.checkpoint',\n"
         "          'data.pipeline', 'launch.train',\n"
-        "          'kernels.flash_attention_bwd')\n"
+        "          'kernels.flash_attention_bwd', 'distributed',\n"
+        "          'distributed.partition', 'distributed.compression',\n"
+        "          'distributed.pipeline', 'distributed.elastic',\n"
+        "          'launch.steps', 'launch.dryrun', 'core.mixed_precision')\n"
         "missing = [m for m in walked if 'repro_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")

@@ -370,9 +370,14 @@ def test_mesh_types():
         "variants": 1}
     assert mesh_mod.make_trainer_mesh(devices=["cpu"] * 2).shape == {
         "pairgrid": 2}
-    assert mesh_mod.make_test_mesh().shape == {"data": 1}
-    with pytest.raises(ValueError, match="1-D"):
-        mesh_mod.make_test_mesh(shape=(2, 4), axes=("data", "model"))
+    two_d = mesh_mod.make_test_mesh()
+    assert two_d.shape == {"data": 2, "model": 4} and two_d.size == 8
+    assert two_d == mesh_mod.make_test_mesh(shape=(2, 4),
+                                            axes=("data", "model"))
+    # A 1-D consumer refuses a multi-axis mesh, even one holding its axis.
+    batch_2d = mesh_mod.make_test_mesh(shape=(2, 4), axes=("batch", "model"))
+    with pytest.raises(ValueError, match="1-D mesh over 'batch'"):
+        mesh_mod.require_axis(batch_2d, "batch", "make_serving_mesh")
     with pytest.raises(ValueError, match="n_devices"):
         mesh_mod.make_serving_mesh(2, devices=["cpu"])
     if not torch.cuda.is_available():

@@ -206,7 +206,10 @@ def test_ssd_padded_sequence(s, chunk):
 
 def test_kernel_wrappers_refuse_what_they_cannot_launch():
     """A CPU tensor never reaches K3 / K4 (the ops run the plain versions);
-    the CUDA wrappers refuse it, and other devices raise in the ops."""
+    the CUDA wrappers refuse it; a meta tensor (the dry run's trace) takes
+    the plain versions too, and other devices raise in the ops."""
+    import types
+
     from repro_torch.kernels import flash_attention, ssd
 
     q = torch.zeros((1, 2, 8, 32))
@@ -218,8 +221,11 @@ def test_kernel_wrappers_refuse_what_they_cannot_launch():
     with pytest.raises(ValueError, match="chunk"):
         ssd.ssd_scan_cuda(x, x[..., 0], x[:, :, :1], x[:, :, :1], chunk=48)
     meta = torch.empty((1, 2, 8, 32), device="meta")
+    out = t_ops.flash_attention(meta, meta, meta)
+    assert out.device.type == "meta" and out.shape == meta.shape
+    other = types.SimpleNamespace(is_cuda=False, device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no kernel"):
-        t_ops.flash_attention(meta, meta, meta)
+        t_ops._on_card(other)
     with pytest.raises(ValueError, match="not a multiple"):
         t_ops.ssd_scan(x[:, :30], x[:, :30, :, 0], x[:, :30, :1],
                      x[:, :30, :1], chunk=32)

@@ -259,18 +259,23 @@ def test_ssd_chunked_gradient_matches_the_reference(case):
 
 def test_a_final_state_without_gradient_is_zero():
     """Only y used: the final state's gradient reaches the backward as
-    ``None`` and counts as zero (the twin with dfinal None, and autograd
-    without the final state's term)."""
+    ``None`` and counts as zero (bit for bit the pass twins with dfinal
+    None, which the backward runs off the card; the closed-form twin with
+    dfinal None, and autograd without the final state's term)."""
     case = "dh16_g1_ds128_padded"
     s, chunk = CASES[case][0], CASES[case][4]
     x, a, bm, cm, dy, _ = _padded(case)
+    _, s_fin, cum, s_prev = ref.ssd_passes(x, a, bm, cm, chunk)
+    chain = _pass_chain(x, a, bm, cm, dy, None, chunk, s_fin, cum, s_prev)
     leaves = [v.requires_grad_(True) for v in (x, a, bm, cm)]
     y, _ = ops.ssd_scan(*leaves, chunk=chunk)
     (y * dy).sum().backward()
     twin = _twin(case, dfinal=False)
-    for name, v, want, plain in zip(("dx", "da", "dB", "dC"), leaves, twin,
-                                    _autograd_of_plain(case, dfinal=False)):
-        assert torch.equal(v.grad[:, :s], want), name
+    for name, v, got, want, plain in zip(
+            ("dx", "da", "dB", "dC"), leaves, chain, twin,
+            _autograd_of_plain(case, dfinal=False)):
+        assert torch.equal(v.grad, got), name
+        _close(v.grad[:, :s], want, name)
         _close(want, plain, name)
 
 

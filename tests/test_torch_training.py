@@ -221,7 +221,7 @@ def test_grad_accum_equals_full_batch():
     outs = []
     for ga in (1, 2):
         state = step_mod.init_train_state(cfg, oc, 0, "cpu")
-        state, m = step_mod.make_train_step(cfg, oc, grad_accum=ga)(state,
+        state, m = step_mod.make_train_step(cfg, None, oc, grad_accum=ga)(state,
                                                                      batch)
         outs.append([p.detach().clone() for p in state["params"].parameters()])
         assert np.isfinite(float(m["loss"]))
@@ -276,7 +276,7 @@ def test_train_step_matches_the_reference(family):
             rtol=0, err_msg=str(leaf.path))
         assert np.abs(got).max() > 0, leaf.path
 
-    new, m = step_mod.make_train_step(cfg, oc)(state, tb)
+    new, m = step_mod.make_train_step(cfg, None, oc)(state, tb)
     assert abs(float(m["loss"]) - float(r_m["loss"])) <= \
         1e-5 * abs(float(r_m["loss"]))
     np.testing.assert_allclose(float(m["grad_norm"]), float(r_m["grad_norm"]),
@@ -333,7 +333,7 @@ def test_cast_params_bf16_loss_matches_the_reference():
     batch = _tokens_batch(cfg)
     _, _, r_m = _reference_step(r_cfg, r_oc, cast=True)(
         r_state, {k: jnp.asarray(v) for k, v in batch.items()})
-    new, m = step_mod.make_train_step(cfg, oc, cast_params_bf16=True)(
+    new, m = step_mod.make_train_step(cfg, None, oc, cast_params_bf16=True)(
         state, _torch_batch(batch))
     assert abs(float(m["loss"]) - float(r_m["loss"])) <= \
         2e-2 * abs(float(r_m["loss"]))
@@ -347,7 +347,7 @@ def test_step_state_and_metrics():
     state = step_mod.init_train_state(cfg, oc, 0, "cpu")
     assert all(t.requires_grad and t.dtype == torch.float32
                for t in state["params"].parameters())
-    ts = step_mod.make_train_step(cfg, oc, grad_accum=2)
+    ts = step_mod.make_train_step(cfg, None, oc, grad_accum=2)
     batch = _torch_batch(_tokens_batch(cfg, b=4))
     for i in range(2):
         state, m = ts(state, batch)
@@ -357,4 +357,4 @@ def test_step_state_and_metrics():
     assert float(m["ppl_tokens"]) == 2 * S
     assert all(t.grad is None for t in state["params"].parameters())
     with pytest.raises(ValueError, match="microbatches"):
-        step_mod.make_train_step(cfg, oc, grad_accum=3)(state, batch)
+        step_mod.make_train_step(cfg, None, oc, grad_accum=3)(state, batch)
