@@ -525,7 +525,7 @@ def record_launches():
     """Record the plan arguments of every launch of the kernels while
     the context is open: ``{library: set of argument tuples}``.
 
-    Each kernel's launch counter (``kernels.build.LaunchCounter``) collects
+    Each kernel's launch counter (``tracing.LaunchCounter``) collects
     the shapes its wrapper reports at the launch; nothing else changes, and
     the counters stop collecting on exit.  The launches still count."""
     counters = _counters()

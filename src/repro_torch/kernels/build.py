@@ -46,24 +46,6 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
 
 
-class LaunchCounter:
-    """Launches of one hand kernel: the wrapper calls :meth:`launched` once
-    per launch, with the shape arguments of the library's plan query
-    (``csrc/budget.cuh``).  ``shapes`` is ``None`` unless a caller (the
-    static analyzer's ``kernel_budget.record_launches``) sets it to a set,
-    which then collects the shape of every launch."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.count = 0
-        self.shapes: set | None = None
-
-    def launched(self, shape: tuple) -> None:
-        self.count += 1
-        if self.shapes is not None:
-            self.shapes.add(shape)
-
-
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -41,15 +41,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.tracing import LaunchCounter
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 96, 112, 128)
 #: TMA reads a tile from a 16-byte aligned base address.
 TMA_ALIGN = 16
 
-LAUNCHES = build.LaunchCounter("flash_attention")
-LAUNCHES_TC = build.LaunchCounter("flash_attention_bf16_wgmma")
-LAUNCHES_F32 = build.LaunchCounter("flash_attention_f32_cuda_cores")
+LAUNCHES = LaunchCounter("flash_attention")
+LAUNCHES_TC = LaunchCounter("flash_attention_bf16_wgmma")
+LAUNCHES_F32 = LaunchCounter("flash_attention_f32_cuda_cores")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

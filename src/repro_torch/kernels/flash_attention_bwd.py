@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPES, TMA_ALIGN
+from repro_torch.tracing import LaunchCounter
 
 HEAD_DIMS = (32, 64, 96, 112, 128)
 
@@ -50,9 +51,9 @@ HEAD_DIMS = (32, 64, 96, 112, 128)
 #: must catch them: every q block drops its last visible kv block.
 FAULT_DROP_LAST_KV_BLOCK = 1
 
-LAUNCHES = build.LaunchCounter("flash_attention_bwd")
-LAUNCHES_TC = build.LaunchCounter("flash_attention_bwd_bf16_wgmma")
-LAUNCHES_F32 = build.LaunchCounter("flash_attention_bwd_f32_cuda_cores")
+LAUNCHES = LaunchCounter("flash_attention_bwd")
+LAUNCHES_TC = LaunchCounter("flash_attention_bwd_bf16_wgmma")
+LAUNCHES_F32 = LaunchCounter("flash_attention_bwd_f32_cuda_cores")
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,

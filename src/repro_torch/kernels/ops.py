@@ -31,7 +31,7 @@ from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import rbf, ref, solver
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import ssd_bwd as _ssd_bwd
-from repro_torch.kernels.build import LaunchCounter
+from repro_torch.tracing import LaunchCounter
 
 #: ``SSDScan.backward`` calls on either device (not a kernel launch).
 SSD_BACKWARDS = LaunchCounter("ssd_scan_backward")

@@ -29,10 +29,11 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.tracing import LaunchCounter
 
 KINDS = {"rbf": 1, "sech2": 2}
 
-LAUNCHES = build.LaunchCounter("kernel_matrix")
+LAUNCHES = LaunchCounter("kernel_matrix")
 
 
 @functools.lru_cache(maxsize=64)

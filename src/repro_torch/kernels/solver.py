@@ -32,11 +32,12 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.rbf import sech2_consts
+from repro_torch.tracing import LaunchCounter
 
 KINDS = {"linear": 0, "rbf": 1, "sech2": 2}
 GRAM = 3
 
-LAUNCHES = build.LaunchCounter("solver")
+LAUNCHES = LaunchCounter("solver")
 
 
 def _launch(x, y, c_box, gamma, gram, kind_code, p, g, l, n, d, n_epochs,

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.tracing import LaunchCounter
 
 #: hymba's and mamba2's ssm head dim, and the reference's Pallas test
 #: sweep's.
@@ -42,7 +43,7 @@ DEVICE_LAUNCHES = 3
 #: x and y are read and written 16 bytes at a time.
 ALIGN = 16
 
-LAUNCHES = build.LaunchCounter("ssd")
+LAUNCHES = LaunchCounter("ssd")
 
 
 def ssd_passes_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,

@@ -42,6 +42,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssd_bwd_slices
 from repro_torch.kernels.ssd import ALIGN, HEAD_DIMS, MAX_STATE
+from repro_torch.tracing import LaunchCounter
 
 #: Device launches per call: chunk states, state pass, chunk, state terms,
 #: slice sum.
@@ -52,7 +53,7 @@ DEVICE_LAUNCHES = 5
 #: t tile (the last j tile its diagonal one).
 FAULT_DROP_LAST_T_BLOCK = 1
 
-LAUNCHES = build.LaunchCounter("ssd_bwd")
+LAUNCHES = LaunchCounter("ssd_bwd")
 
 
 def ssd_bwd_passes_cuda(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,

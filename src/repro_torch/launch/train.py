@@ -7,7 +7,9 @@ the reference: the full config of ``--arch`` is built unless it is given.
 Fault tolerance as there: atomic checkpoints every ``--ckpt-every`` steps
 in the reference's layout, ``--resume auto`` picks up the latest complete
 one, and the stateless data pipeline replays the exact stream from any
-step.  ``main`` returns the losses of the steps it ran.
+step.  ``main`` returns the losses of the steps it ran.  The host runs
+ahead of the card: each step's loss stays on the device until a log line
+(every ``--log-every`` steps) or the end reads the pending ones at once.
 
   python -m repro_torch.launch.train --arch granite-moe-1b-a400m \
       --steps 6 --global-batch 4 --seq-len 4096 --grad-accum 2
@@ -106,18 +108,25 @@ def main(argv=None, on_step=None):
     ts = step_mod.make_train_step(cfg, ShardRules(), oc,
                                   grad_accum=args.grad_accum)
     t0 = time.time()
-    losses = []
+    losses, pending = [], []
+
+    def read_losses():
+        """The pending steps' device losses as floats: one host sync."""
+        if pending:
+            losses.extend(torch.stack(pending).float().tolist())
+            pending.clear()
+
     for step in range(start, args.steps):
         batch = pipe.device_batch_at(step, dev)
         t_step = time.perf_counter()
         state, m = ts(state, batch)
-        loss = float(m["loss"])
-        losses.append(loss)
+        pending.append(m["loss"])
         if on_step is not None:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             on_step(step, state, m, time.perf_counter() - t_step)
         if (step + 1) % args.log_every == 0:
+            read_losses()
             dt = (time.time() - t0) / max(step + 1 - start, 1)
             print(f"step {step + 1:5d} loss {losses[-1]:.4f} "
                   f"gnorm {float(m['grad_norm']):.2f} "
@@ -127,6 +136,7 @@ def main(argv=None, on_step=None):
                       train_state_to_numpy(cfg, state))
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, args.steps, train_state_to_numpy(cfg, state))
+    read_losses()
     print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     return losses
 

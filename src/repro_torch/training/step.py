@@ -17,6 +17,14 @@ weights ``(d_in, d_out)``) one at a time, gathering each leaf's parameter
 and gradient, so its moments, its ``ndim >= 2`` decay rule and its 8-bit
 blocks are the reference's, and one leaf's temporaries are alive at once.
 
+While ``torch.profiler`` records, each step marks its phases
+(``tracing.span``), the same with and without a mesh: ``train.forward``
+around each microbatch's forward, ``train.backward`` around its
+``loss.backward()`` (remat's recompute runs inside it, on autograd's
+thread, while this one waits), and ``train.optimizer`` from the average
+and clip through the AdamW leaves and the gradient reset: ``2 *
+grad_accum + 1`` spans a step.
+
 ``make_train_step(cfg, rules, opt_cfg, ...)`` takes the reference's
 ``ShardRules`` second.  Without a mesh they change nothing, as in the
 reference.  With ``mesh=`` (``launch.mesh``) the step is the port's answer
@@ -52,6 +60,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import device_key, resolve_device
 from repro_torch.launch.mesh import Mesh, Sharded, device_put
 
@@ -139,20 +148,21 @@ def make_train_step(cfg: ModelConfig, rules: ShardRules | None,
         params = [t for leaf in leaves for t in leaf.tensors]
         loss, metrics = _accumulate(loss_fn, model, params,
                                     _microbatches(batch, grad_accum))
-        loss, gnorm = _average_and_clip(params, loss, grad_accum, clip_norm)
-
-        opt = state["opt"]
-        step, lr, bc1, bc2 = opt_mod.step_scalars(opt_cfg, opt["step"])
-        new_m, new_v = [], []
-        for leaf, m, v in zip(leaves, opt["m"], opt["v"], strict=True):
-            p, g = leaf.gather(), leaf.gather(lambda t: t.grad)
-            new_p, m, v = opt_mod.update_leaf(opt_cfg, p, g, m, v, lr, bc1,
-                                              bc2)
-            leaf.scatter(new_p)
-            new_m.append(m)
-            new_v.append(v)
-        for t in params:
-            t.grad = None
+        with tracing.span("train.optimizer"):
+            loss, gnorm = _average_and_clip(params, loss, grad_accum,
+                                            clip_norm)
+            opt = state["opt"]
+            step, lr, bc1, bc2 = opt_mod.step_scalars(opt_cfg, opt["step"])
+            new_m, new_v = [], []
+            for leaf, m, v in zip(leaves, opt["m"], opt["v"], strict=True):
+                p, g = leaf.gather(), leaf.gather(lambda t: t.grad)
+                new_p, m, v = opt_mod.update_leaf(opt_cfg, p, g, m, v, lr,
+                                                  bc1, bc2)
+                leaf.scatter(new_p)
+                new_m.append(m)
+                new_v.append(v)
+            for t in params:
+                t.grad = None
         return {"params": model, "opt": {"m": new_m, "v": new_v,
                                          "step": step},
                 "step": state["step"] + 1}, _step_metrics(
@@ -175,8 +185,10 @@ def _accumulate(loss_fn: Callable, model, tensors: list, micro: dict,
         t.grad = None if g is None else g.to(t.device)
     n = len(next(iter(micro.values())))
     for j in range(n):
-        loss, metrics = loss_fn(model, {k: v[j] for k, v in micro.items()})
-        loss.backward()
+        with tracing.span("train.forward"):
+            loss, metrics = loss_fn(model, {k: v[j] for k, v in micro.items()})
+        with tracing.span("train.backward"):
+            loss.backward()
         loss = loss.detach()
         loss_sum = loss if loss_sum is None else \
             loss_sum + loss.to(loss_sum.device)
@@ -390,19 +402,21 @@ def _mesh_train_step(cfg: ModelConfig, rules: ShardRules,
             if other is not model:
                 for t in other.parameters():
                     t.grad = None
-        loss, gnorm = _average_and_clip(tensors, loss_sum.to(red),
-                                        len(shares) * grad_accum, clip_norm)
         metrics = {k: v.to(red) for k, v in metrics.items()}
-
-        o_step = opt["step"].full() if isinstance(opt["step"], Sharded) \
-            else opt["step"]
-        step, lr, bc1, bc2 = opt_mod.step_scalars(opt_cfg, o_step.to(red))
-        for leaf, p, m, v in zip(leaves, flat_p, flat_m, flat_v,
-                                 strict=True):
-            g = leaf.gather(lambda t: t.grad)
-            for t in leaf.tensors:
-                t.grad = None
-            _update_sharded(opt_cfg, p, g, m, v, (lr, bc1, bc2))
+        with tracing.span("train.optimizer"):
+            loss, gnorm = _average_and_clip(tensors, loss_sum.to(red),
+                                            len(shares) * grad_accum,
+                                            clip_norm)
+            o_step = opt["step"].full() \
+                if isinstance(opt["step"], Sharded) else opt["step"]
+            step, lr, bc1, bc2 = opt_mod.step_scalars(opt_cfg,
+                                                      o_step.to(red))
+            for leaf, p, m, v in zip(leaves, flat_p, flat_m, flat_v,
+                                     strict=True):
+                g = leaf.gather(lambda t: t.grad)
+                for t in leaf.tensors:
+                    t.grad = None
+                _update_sharded(opt_cfg, p, g, m, v, (lr, bc1, bc2))
         return {"params": state["params"],
                 "opt": {"m": opt["m"], "v": opt["v"],
                         "step": device_put(step, mesh)},

@@ -252,3 +252,41 @@ def test_train_main_defaults_to_the_card(monkeypatch):
         train.main(["--arch", "granite-moe-1b-a400m", "--reduced"])
     args = train.build_parser().parse_args([])
     assert args.reduced is False and args.device is None
+
+
+def test_train_main_reads_the_losses_at_log_lines(monkeypatch):
+    """Each step's loss stays a device scalar until a log line or the end
+    reads the pending ones at once; ``main`` returns them as floats."""
+    losses, reads = {}, []         # id -> the loss itself, kept alive
+    make = step_mod.make_train_step
+
+    def tracked(*a, **k):
+        ts = make(*a, **k)
+
+        def step(state, batch):
+            state, m = ts(state, batch)
+            losses[id(m["loss"])] = m["loss"]
+            return state, m
+        return step
+
+    stack = torch.stack
+
+    def counted(tensors, *a, **k):
+        if any(id(t) in losses for t in tensors):
+            reads.append(len(tensors))
+        return stack(tensors, *a, **k)
+
+    to_float = torch.Tensor.__float__
+
+    def no_float(t):
+        assert id(t) not in losses, "a step's loss read on its own"
+        return to_float(t)
+
+    monkeypatch.setattr(step_mod, "make_train_step", tracked)
+    monkeypatch.setattr(torch, "stack", counted)
+    monkeypatch.setattr(torch.Tensor, "__float__", no_float)
+    out = train.main(["--arch", "granite-moe-1b-a400m", "--reduced",
+                      "--device", "cpu", "--global-batch", "2",
+                      "--seq-len", "16", "--steps", "5", "--log-every", "2"])
+    assert reads == [2, 2, 1]
+    assert len(out) == 5 and all(type(x) is float for x in out)

@@ -358,3 +358,89 @@ def test_step_state_and_metrics():
     assert all(t.grad is None for t in state["params"].parameters())
     with pytest.raises(ValueError, match="microbatches"):
         step_mod.make_train_step(cfg, None, oc, grad_accum=3)(state, batch)
+
+
+# -- the trainer's spans ------------------------------------------------------
+
+
+def _phases(prof) -> list[str]:
+    """The ``train.*`` spans of a profile, in the order they began."""
+    spans = [e for e in prof.events() if e.name.startswith("train.")]
+    return [e.name for e in sorted(spans, key=lambda e: e.time_range.start)]
+
+
+def _phase_order(n_micro: int) -> list[str]:
+    return ["train.forward", "train.backward"] * n_micro + ["train.optimizer"]
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_train_step_marks_its_phases_under_the_profiler(grad_accum):
+    """``grad_accum`` forward and backward spans, in turn, then one
+    optimizer span, each step."""
+    cfg = configs.get("granite-moe-1b-a400m").reduced()
+    oc = opt_mod.AdamWConfig(warmup_steps=1, total_steps=10)
+    state = step_mod.init_train_state(cfg, oc, 0, "cpu")
+    ts = step_mod.make_train_step(cfg, None, oc, grad_accum=grad_accum)
+    batch = _torch_batch(_tokens_batch(cfg, b=4, s=16))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            state, _m = ts(state, batch)
+    assert _phases(prof) == _phase_order(grad_accum) * 2
+
+
+def test_mesh_step_marks_the_same_phases():
+    from repro_torch.launch import mesh as mesh_mod
+
+    cfg = configs.get("granite-20b").reduced()
+    oc = opt_mod.AdamWConfig(warmup_steps=1, total_steps=10)
+    mesh = mesh_mod.make_test_mesh(shape=(2, 1))
+    state = step_mod.shard_train_state(
+        cfg, RULES, oc, step_mod.init_train_state(cfg, oc, 0, "cpu"), mesh)
+    ts = step_mod.make_train_step(cfg, RULES, oc, grad_accum=2, mesh=mesh)
+    batch = _torch_batch(_tokens_batch(cfg, b=4, s=16))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        ts(state, batch)
+    assert _phases(prof) == _phase_order(4)      # 2 shares x 2 microbatches
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_remat_recompute_runs_inside_the_backward_span(remat):
+    """The blocks' forward products (``aten::linear``) rerun inside
+    ``train.backward`` under ``remat="full"``, and not at all without it."""
+    cfg = dataclasses.replace(
+        configs.get("granite-moe-1b-a400m").reduced(), remat=remat)
+    oc = opt_mod.AdamWConfig(warmup_steps=1, total_steps=10)
+    state = step_mod.init_train_state(cfg, oc, 0, "cpu")
+    ts = step_mod.make_train_step(cfg, None, oc, grad_accum=1)
+    batch = _torch_batch(_tokens_batch(cfg, b=2, s=16))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        ts(state, batch)
+    events = prof.events()
+
+    def linears_in(phase):
+        r, = [e.time_range for e in events if e.name == phase]
+        return sum(e.name == "aten::linear" and r.start <= e.time_range.start
+                   and e.time_range.end <= r.end for e in events)
+
+    forward = linears_in("train.forward")
+    assert forward > 0
+    assert linears_in("train.backward") == (forward if remat == "full"
+                                            else 0)
+
+
+def test_no_profiler_no_span(monkeypatch):
+    """With the profiler off a step makes no ``record_function`` call."""
+    def refuse(*a, **k):
+        raise AssertionError("record_function called with the profiler off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    cfg = configs.get("granite-moe-1b-a400m").reduced()
+    oc = opt_mod.AdamWConfig(warmup_steps=1, total_steps=10)
+    state = step_mod.init_train_state(cfg, oc, 0, "cpu")
+    ts = step_mod.make_train_step(cfg, None, oc, grad_accum=2)
+    state, m = ts(state, _torch_batch(_tokens_batch(cfg, b=4, s=16)))
+    assert state["step"] == 1 and np.isfinite(float(m["loss"]))
