@@ -5,8 +5,9 @@ reference step for step, so that the same assignments are kept and dropped:
 the router in f32, softmax, top-k, the Switch-style aux loss; assignments
 stably sorted by expert id, each expert taking a contiguous capacity-C slab
 of the sorted stream (the capacity from the token count, with the decode
-floor and the ``moe_two_d`` rounding), a sentinel slot of weight 0 for the
-empty ones, one batched product per projection over the experts, and a
+floor and the ``moe_two_d`` rounding), a sentinel slot of weight 0 for
+each empty one (pointing at a token of its own, so no token collects them
+all), one batched product per projection over the experts, and a
 scatter-add back to the tokens.  The expert products are plain
 ``torch.einsum`` / ``bmm``, as the reference leaves its ``jnp.einsum`` to
 XLA outside any Pallas kernel.  Mesh sharding constraints are no-ops on one
@@ -113,7 +114,8 @@ def _dispatch(eid: torch.Tensor, wgt: torch.Tensor, k: int, e: int,
               cap: int):
     """Sort-based dispatch of the flat assignments ``eid``, ``wgt`` (...,
     n = tokens * k) -> ``tok`` (..., e, cap) token ids and ``w_tok`` (...,
-    e, cap) weights, 0 in the sentinel slots (which point at token 0)."""
+    e, cap) weights, 0 in the sentinel slots, where the flat slot j points
+    at token j mod (n // k)."""
     n = eid.shape[-1]
     lead = eid.shape[:-1]
     order = torch.argsort(eid, dim=-1, stable=True)
@@ -124,15 +126,17 @@ def _dispatch(eid: torch.Tensor, wgt: torch.Tensor, k: int, e: int,
         -1, eid, torch.ones_like(eid))
     offsets = torch.cumsum(counts, -1) - counts
     slot = torch.arange(cap, device=eid.device)
-    take = offsets[..., :, None] + slot
     valid = slot < counts[..., :, None]
-    take = torch.where(valid, torch.clamp(take, max=n - 1), n)
-    zero = torch.zeros(lead + (1,), dtype=tid_s.dtype, device=eid.device)
-    tid_pad = torch.cat([tid_s, zero], -1)
-    wgt_pad = torch.cat([wgt_s, zero.to(wgt_s.dtype)], -1)
+    # Sentinel slot j of the (e, cap) slab reads sorted position j mod n and
+    # points at token j mod t, so no index repeats more than k + ceil(e cap
+    # / t) times: the gathers' backward and the scatter-add back to the
+    # tokens add short runs, not one pile of every empty slot.
+    j = torch.arange(e * cap, device=eid.device).reshape(e, cap)
+    take = torch.where(valid, offsets[..., :, None] + slot, j % n)
     flat = take.reshape(lead + (-1,))
-    tok = torch.gather(tid_pad, -1, flat).reshape(take.shape)
-    w_tok = torch.where(valid, torch.gather(wgt_pad, -1, flat).reshape(
+    tok = torch.where(valid, torch.gather(tid_s, -1, flat).reshape(
+        take.shape), j % (n // k))
+    w_tok = torch.where(valid, torch.gather(wgt_s, -1, flat).reshape(
         take.shape), 0.0)
     return tok, w_tok
 
