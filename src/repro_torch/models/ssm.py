@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
     Dense, ModelConfig, dense_apply, dense_init, normal, rmsnorm,
@@ -112,7 +113,16 @@ def ssd_chunked(x, a, bmat, cmat, chunk: int = SSD_CHUNK):
 
 def apply_seq(cfg: ModelConfig, p: SSM, x: torch.Tensor):
     """Full-sequence Mamba2 mixer from the zero state (the reference's
-    ``init_state`` has no caller). x: (b, s, d) -> (y, SSMState)."""
+    ``init_state`` has no caller). x: (b, s, d) -> (y, SSMState).
+
+    While the profiler records, the mixer is the span ``ssm.mixer``: in
+    training under remat each layer marks it twice, in the forward and in
+    the backward's recompute."""
+    with tracing.span("ssm.mixer"):
+        return _apply_seq(cfg, p, x)
+
+
+def _apply_seq(cfg: ModelConfig, p: SSM, x: torch.Tensor):
     b, s, _ = x.shape
     nh, dh, ds, g = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
     di = cfg.d_inner

@@ -22,6 +22,8 @@ import math
 
 import torch
 
+from repro_torch import tracing
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -142,7 +144,9 @@ def update_leaf(cfg: AdamWConfig, p: torch.Tensor, g: torch.Tensor, m, v,
     f32 tensors or ``Quant8`` (re-encoded on the way out), updated
     ``UPDATE_CHUNK`` entries at a time.  The update is elementwise, so a
     shard of a leaf updates alone: ``ndim`` is then the whole leaf's, for
-    the decay rule (default ``p.ndim``)."""
+    the decay rule (default ``p.ndim``).  While the profiler records, each
+    chunk's ``Quant8`` decode and its encode are spans
+    ``optimizer.moments``; f32 moments mark none."""
     decay = cfg.weight_decay if (p.ndim if ndim is None else ndim) >= 2 \
         else 0.0
     quant = isinstance(m, Quant8)
@@ -161,8 +165,9 @@ def update_leaf(cfg: AdamWConfig, p: torch.Tensor, g: torch.Tensor, m, v,
         e = min(n, s + chunk)
         r = slice(i * rows, (i + 1) * rows)
         if quant:
-            m_f = Quant8(m.q[r], m.hi[r], (e - s,)).decode()
-            v_f = Quant8(v.q[r], v.hi[r], (e - s,)).decode()
+            with tracing.span("optimizer.moments"):
+                m_f = Quant8(m.q[r], m.hi[r], (e - s,)).decode()
+                v_f = Quant8(v.q[r], v.hi[r], (e - s,)).decode()
         else:
             m_f, v_f = m.reshape(-1)[s:e], v.reshape(-1)[s:e]
         gf = flat_g[s:e].float()
@@ -172,9 +177,10 @@ def update_leaf(cfg: AdamWConfig, p: torch.Tensor, g: torch.Tensor, m, v,
         pf = flat_p[s:e].float()
         out_p[s:e] = pf - lr * (update + decay * pf)
         if quant:
-            for src, dst in ((m_f, new_m), (v_f, new_v)):
-                code = Quant8.encode(src, cfg.block)
-                dst.q[r], dst.hi[r] = code.q, code.hi
+            with tracing.span("optimizer.moments"):
+                for src, dst in ((m_f, new_m), (v_f, new_v)):
+                    code = Quant8.encode(src, cfg.block)
+                    dst.q[r], dst.hi[r] = code.q, code.hi
         else:
             new_m.view(-1)[s:e], new_v.view(-1)[s:e] = m_f, v_f
     return new_p, new_m, new_v

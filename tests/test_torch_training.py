@@ -444,3 +444,53 @@ def test_no_profiler_no_span(monkeypatch):
     ts = step_mod.make_train_step(cfg, None, oc, grad_accum=2)
     state, m = ts(state, _torch_batch(_tokens_batch(cfg, b=4, s=16)))
     assert state["step"] == 1 and np.isfinite(float(m["loss"]))
+
+
+def test_mixer_and_moment_code_spans_under_the_profiler():
+    """Each Mamba2 mixer marks ``ssm.mixer`` in the forward and again in
+    remat's recompute inside ``train.backward``; with 8-bit moments each
+    leaf's decode and encode mark ``optimizer.moments`` inside
+    ``train.optimizer``, and with f32 moments nothing does."""
+    cfg = dataclasses.replace(configs.get("mamba2-2.7b").reduced(),
+                              remat="full")
+    batch = _torch_batch(_tokens_batch(cfg, b=2, s=16))
+    for quant in (True, False):
+        oc = opt_mod.AdamWConfig(warmup_steps=1, total_steps=10,
+                                 quantize_state=quant)
+        state = step_mod.init_train_state(cfg, oc, 0, "cpu")
+        ts = step_mod.make_train_step(cfg, None, oc, grad_accum=1)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            ts(state, batch)
+        events = prof.events()
+
+        def inside(name):
+            ranges = [e.time_range for e in events if e.name == name]
+            return [[e.name for e in events if e.name.startswith("train.")
+                     and e.time_range.start <= r.start
+                     and r.end <= e.time_range.end] for r in ranges]
+
+        n = cfg.n_layers
+        assert sorted(map(tuple, inside("ssm.mixer"))) == \
+            [("train.backward",)] * n + [("train.forward",)] * n
+        leaves = len(reference_leaves(cfg, state["params"]))
+        assert inside("optimizer.moments") == \
+            ([["train.optimizer"]] * 2 * leaves if quant else [])
+
+
+def test_no_profiler_no_mixer_or_moment_code_span(monkeypatch):
+    """With the profiler off the SSM mixer and the 8-bit moments' code make
+    no ``record_function`` call."""
+    def refuse(*a, **k):
+        raise AssertionError("record_function called with the profiler off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    cfg = configs.get("mamba2-2.7b").reduced()
+    oc = opt_mod.AdamWConfig(warmup_steps=1, total_steps=10,
+                             quantize_state=True)
+    state = step_mod.init_train_state(cfg, oc, 0, "cpu")
+    ts = step_mod.make_train_step(cfg, None, oc, grad_accum=2)
+    state, m = ts(state, _torch_batch(_tokens_batch(cfg, b=4, s=16)))
+    assert state["step"] == 1 and np.isfinite(float(m["loss"]))
+    assert isinstance(state["opt"]["m"][0], opt_mod.Quant8)
